@@ -1,0 +1,55 @@
+"""citylearn_tpu_torch: the PyTorch/CUDA port of ``citylearn_tpu``.
+
+The battery+PV district path runs end to end: compile a schema
+(``compiler``), pack it into tensors (``core.params``), step and roll
+out batches of districts (``core.step``, ``core.rollout``), score them
+with the normalized KPI table (``core.evaluate``), and run whole
+open-loop episodes as one hand-written CUDA kernel launch
+(``ops.battery``, ``core.rollout_fast``, ``core.evaluate_fast``).
+
+The package imports ``torch`` and never ``jax`` nor the JAX package.
+Entry points take a ``device`` argument: ``None`` means the CUDA card,
+and raises when there is none; pass ``device="cpu"`` to run the plain
+PyTorch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "compile_schema": "citylearn_tpu_torch.compiler.schema",
+    "pack": "citylearn_tpu_torch.core.params",
+    "initial_state": "citylearn_tpu_torch.core.params",
+    "batched_initial_states": "citylearn_tpu_torch.core.rollout",
+    "rollout_districts": "citylearn_tpu_torch.core.rollout",
+    "hour_rbc_policy": "citylearn_tpu_torch.core.rollout",
+    "evaluate_districts": "citylearn_tpu_torch.core.evaluate",
+    "run_battery_episode": "citylearn_tpu_torch.core.rollout_fast",
+    "ScriptedPolicy": "citylearn_tpu_torch.core.evaluate_fast",
+    "evaluate_scripted": "citylearn_tpu_torch.core.evaluate_fast",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card by default.
+
+    Raises when no card is present and no device was named, so that a
+    run meant for the card never carries on quietly on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,197 @@
+"""Kernel-backed evaluation: the user-facing KPI table served by the
+whole-episode battery kernel.
+
+The reference's ``evaluate()`` (``citylearn.py:1136-1323``) consumes the
+per-step series the env accumulated while stepping. For a battery+PV
+district under an *open-loop* policy (hour-indexed RBC tables or
+per-building per-step plans), the episode runs as ONE kernel launch
+recording district 0's (net, battery balance, SOC) per step; every other
+KPI input is data-driven, so the recorded streams rebuild the exact
+``collected`` dict of :func:`citylearn_tpu_torch.core.evaluate.collect_episode`
+and :func:`citylearn_tpu_torch.core.evaluate.kpi_table` runs unchanged.
+
+:func:`citylearn_tpu_torch.core.evaluate.evaluate_districts` routes here
+when handed a :class:`ScriptedPolicy` on an eligible configuration.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from citylearn_tpu_torch import resolve_device
+from citylearn_tpu_torch.core import rollout_fast
+from citylearn_tpu_torch.core.evaluate import kpi_table, window
+from citylearn_tpu_torch.core.rollout import ACTION_KEYS
+from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
+
+
+class ScriptedPolicy:
+    """An open-loop action plan: ``{action_name: (24,) hour table | (S,)
+    per-step series | (S, B) per-building plan}``.
+
+    A length-24 leading axis is by default interpreted as an hour-indexed
+    table (reference HourRBC semantics). For a 24-STEP per-step plan
+    pass ``hour_tables=False``; with the default (auto) a 24-leading
+    plan on a 24-step episode resolves as an hour table WITH a warning
+    — pass ``hour_tables=True`` to silence it, ``False`` to flip it.
+
+    Scripted policies are state-independent, which is what lets the
+    whole-episode kernel serve them; they also act as ordinary policies
+    on the stepped path via :meth:`as_policy_fn`."""
+
+    def __init__(self, plans: Dict[str, np.ndarray],
+                 hour_tables: Optional[bool] = None):
+        unknown = set(plans) - set(ACTION_KEYS)
+        if unknown:
+            raise ValueError(f"unknown action names: {sorted(unknown)}")
+        self.plans = {k: np.asarray(v, np.float32) for k, v in plans.items()}
+        self.hour_tables = hour_tables
+
+    def _is_hour_table(self, v: np.ndarray, n: int, n_steps: int) -> bool:
+        shaped = (v.ndim == 1 and v.shape[0] == 24) or \
+            (v.ndim == 2 and v.shape[0] == 24 and v.shape[1] == n)
+        if not shaped or self.hour_tables is False:
+            return False
+        if self.hour_tables is None and n_steps == 24:
+            warnings.warn(
+                "a 24-leading action plan on a 24-step episode is "
+                "ambiguous; resolving as an HOUR-INDEXED table — pass "
+                "ScriptedPolicy(..., hour_tables=False) for a per-step "
+                "plan (or True to silence this warning)", stacklevel=3)
+        return True
+
+    def expanded(self, cfg: StaticConfig, params: DistrictParams,
+                 n_steps: int, data_offset: int = 0) -> Dict[str, np.ndarray]:
+        """Normalize every plan to (S, B). Hour tables resolve against the
+        episode window's hours (``data_offset``); explicit plans are
+        episode-relative."""
+        hours = params.series.hour[data_offset:data_offset + n_steps, 0].cpu().numpy()
+        n = cfg.n_buildings
+        out = {}
+        for k, v in self.plans.items():
+            if self._is_hour_table(v, n, n_steps):
+                out[k] = (v[hours - 1] if v.ndim == 2
+                          else np.broadcast_to(v[hours - 1][:, None],
+                                               (n_steps, n)).copy())
+            else:
+                if v.shape[0] < n_steps:
+                    raise ValueError(f"per-step plan for {k} too short: {v.shape}")
+                plan = v[:n_steps]
+                if plan.ndim == 1:
+                    plan = np.broadcast_to(plan[:, None], (n_steps, n)).copy()
+                out[k] = plan
+        return out
+
+    def as_policy_fn(self, cfg: StaticConfig, params: DistrictParams,
+                     n_steps: int) -> Callable:
+        """Policy for the stepped path. Hour tables are expanded over the
+        FULL simulation range and indexed by the sim-range step (so
+        shifted episode windows keep the right hours); explicit (S,)/(S, B)
+        plans are episode-relative and index by the episode step."""
+        hours_full = params.series.hour[:, 0].cpu().numpy()
+        B = cfg.n_buildings
+        dev = params.device
+        by_tau, by_t = {}, {}
+        for k, v in self.plans.items():
+            if self._is_hour_table(v, B, n_steps):
+                table = (v[hours_full - 1] if v.ndim == 2 else
+                         np.broadcast_to(v[hours_full - 1][:, None],
+                                         (hours_full.shape[0], B)))
+                by_tau[k] = torch.as_tensor(np.ascontiguousarray(table), device=dev)
+            else:
+                plan = np.asarray(v, np.float32)[:n_steps]
+                if plan.ndim == 1:
+                    plan = np.broadcast_to(plan[:, None], (n_steps, B))
+                by_t[k] = torch.as_tensor(np.ascontiguousarray(plan), device=dev)
+
+        def policy(params, states):
+            tau = (states.data_offset + states.t).long()
+            t = states.t.long()
+            zero = torch.zeros((t.shape[0], B), dtype=torch.float32, device=t.device)
+            return {k: (by_tau[k][tau] if k in by_tau else
+                        by_t[k][t] if k in by_t else zero)
+                    for k in ACTION_KEYS}
+        return policy
+
+
+def kernel_family(cfg: StaticConfig) -> Optional[str]:
+    """Which whole-episode kernel serves this configuration, if any."""
+    return "battery" if rollout_fast.eligible(cfg) else None
+
+
+def _with_t0_double(bal: torch.Tensor) -> torch.Tensor:
+    """Battery electricity-consumption series: the t == 0 row double-counts
+    the balance (``building.py:2643-2652``; core/step.py bat_total)."""
+    return torch.cat([bal[:1] * 2.0, bal[1:]], dim=0)
+
+
+def _assemble(cfg: StaticConfig, params: DistrictParams, rec: torch.Tensor,
+              off: int, baseline_condition: str) -> Dict[str, torch.Tensor]:
+    """KPI dict for one district from the kernel's recorded (3, S, B)
+    stream and the data series of the episode window ``[off, off + S)``."""
+    S = rec.shape[1]
+    ser = params.series
+    start = torch.tensor([off], device=rec.device)
+    w = lambda arr: window(arr, start, S)                    # (S, 1, B)
+    net = rec[0][:, None]
+    pricing = w(ser.electricity_pricing)
+    carbon = w(ser.carbon_intensity)
+    collected = dict(
+        net=net,
+        cost=net * pricing,
+        emission=torch.clamp(net * carbon, min=0.0),
+        storage=_with_t0_double(rec[1])[:, None],
+        solar=-w(ser.solar_generation),
+        pricing=pricing,
+        carbon=carbon,
+        indoor_t=w(ser.indoor_dry_bulb_temperature),
+        cooling_sp=w(ser.indoor_dry_bulb_temperature_cooling_set_point),
+        heating_sp=w(ser.indoor_dry_bulb_temperature_heating_set_point),
+        cooling_demand_actual=w(ser.cooling_demand),
+        heating_demand_actual=w(ser.heating_demand),
+        served=w(ser.non_shiftable_load),
+    )
+    table = kpi_table(cfg, params, collected, start, baseline_condition)
+    return {k: v[0] for k, v in table.items()}
+
+
+def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
+                      policy: ScriptedPolicy, n_steps: int = None,
+                      baseline_condition: str = "_without_storage",
+                      n_districts: int = None, return_series: bool = False,
+                      data_offset: int = 0, device=None):
+    """Full normalized KPI table for ONE district under an open-loop
+    policy, computed on the whole-episode battery kernel on ``device``
+    (the CUDA card by default).
+
+    Requires a kernel-eligible configuration (``kernel_family(cfg)``).
+    Returns the same ``building|<kpi>`` -> (B,) / ``district|<kpi>`` ->
+    scalar dict as :func:`citylearn_tpu_torch.core.evaluate.kpi_table`;
+    with ``return_series=True`` also the raw recorded (3, S, B) stream.
+    ``n_districts`` identical districts run in the launch (1 by
+    default); the table is district 0's.
+
+    ``data_offset`` evaluates a shifted episode window [off, off + S) —
+    the reference's rolling/random splits (``base.py:76-129``): input
+    series, hour tables and the KPI window all follow the offset."""
+    if kernel_family(cfg) is None:
+        raise ValueError("configuration is not kernel-eligible; use "
+                         "evaluate_districts (stepped path) instead")
+    dev = resolve_device(device)
+    params = params.to(dev)
+    off = int(data_offset)
+    S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
+    plans = policy.expanded(cfg, params, S, data_offset=off)
+    out = rollout_fast.run_battery_episode(
+        cfg, params, n_districts or 1,
+        plans.get("electrical_storage", np.zeros((S, cfg.n_buildings), np.float32)),
+        n_steps=S, record_series=True, data_offset=off, device=dev)
+    rec = out[-1]
+    table = _assemble(cfg, params, rec, off, baseline_condition)
+    if return_series:
+        return table, rec
+    return table

@@ -1,0 +1,180 @@
+"""Tensor containers for the battery+PV district engine.
+
+Dataclasses of tensors take the place of the JAX package's flax
+``PyTreeNode``s, with the same field names. Parameters carry a building
+axis ``B``; input series are time-major ``(T, B)``. The episode state
+of a batch of districts carries a leading district axis ``D`` on every
+field (``t`` and ``data_offset`` are ``(D,)``), written out where the
+JAX package vmaps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{"field.subfield": tensor}`` over a dataclass of tensors."""
+    out = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(flatten(v, f"{prefix}{f.name}."))
+        elif v is not None:
+            out[f"{prefix}{f.name}"] = v
+    return out
+
+
+def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """A copy of ``tree`` with ``fn`` applied to every tensor leaf."""
+    return dataclasses.replace(tree, **{
+        f.name: (map_tensors(fn, v) if dataclasses.is_dataclass(v) else fn(v))
+        for f in dataclasses.fields(tree)
+        for v in (getattr(tree, f.name),)})
+
+
+@dataclasses.dataclass
+class BatteryParams:
+    """Per-building battery parameters, each ``(B,)`` float32 (curves ``(B, P)``).
+
+    Mirrors resolved ``citylearn.energy_model.Battery`` construction
+    (reference ``energy_model.py:872-1016``).
+    """
+    capacity: torch.Tensor
+    nominal_power: torch.Tensor
+    efficiency: torch.Tensor              # base technical efficiency
+    loss_coefficient: torch.Tensor        # standby loss (already includes ratio)
+    initial_soc: torch.Tensor
+    depth_of_discharge: torch.Tensor
+    capacity_loss_coefficient: torch.Tensor
+    power_efficiency_curve_x: torch.Tensor  # (B, P)
+    power_efficiency_curve_y: torch.Tensor
+    capacity_power_curve_x: torch.Tensor
+    capacity_power_curve_y: torch.Tensor
+
+
+@dataclasses.dataclass
+class SeriesData:
+    """Input time series, each ``(T, B)`` float32 over the simulation range.
+
+    ``solar_generation`` is pre-scaled PV output (``pv_nominal * W_per_kW/1000``,
+    positive kWh; reference ``energy_model.py:488``)."""
+    non_shiftable_load: torch.Tensor
+    cooling_demand: torch.Tensor
+    heating_demand: torch.Tensor
+    dhw_demand: torch.Tensor
+    solar_generation: torch.Tensor
+    outdoor_dry_bulb_temperature: torch.Tensor
+    electricity_pricing: torch.Tensor
+    carbon_intensity: torch.Tensor
+    power_outage: torch.Tensor
+    hvac_mode: torch.Tensor               # int32 (T, B)
+    hour: torch.Tensor                    # int32 (T, B), 1-24 (drives RBC policies)
+    indoor_dry_bulb_temperature: torch.Tensor          # ideal (without-control) temp
+    indoor_dry_bulb_temperature_cooling_set_point: torch.Tensor
+    indoor_dry_bulb_temperature_heating_set_point: torch.Tensor
+    comfort_band: torch.Tensor
+    occupant_count: torch.Tensor
+
+
+@dataclasses.dataclass
+class DistrictParams:
+    """Everything the battery+PV step reads, on one device."""
+    series: SeriesData
+    battery: BatteryParams
+
+    @property
+    def device(self) -> torch.device:
+        return self.battery.capacity.device
+
+    def to(self, device) -> "DistrictParams":
+        return map_tensors(lambda x: x.to(device), self)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticConfig:
+    """Hashable static configuration of a packed district (the same fields
+    as the JAX package's, so both packages describe a district alike)."""
+    n_buildings: int
+    time_steps: int                      # episode length T (steps = T - 1)
+    central_agent: bool
+    seconds_per_time_step: float
+    time_step_ratio: float
+    simulate_power_outage: Tuple[bool, ...]   # per building
+    # blocks the JAX package carries and this port does not yet: a
+    # configuration that sets any of them raises in core/step.py
+    has_stochastic_outage: bool = False
+    parity_f64: bool = False             # float64 reference-parity mode
+    reward_exponent: float = 1.0
+    reward_type: str = "RewardFunction"
+    # ComfortReward parameters (reference reward_function.py:216-340)
+    reward_band: Optional[float] = None
+    reward_lower_exponent: float = 2.0
+    reward_higher_exponent: float = 2.0
+    reward_coefficients: Tuple[float, ...] = (1.0, 1.0)  # SolarPenaltyAndComfortReward weights
+    # MultiBuildingRewardFunction (reference citylearn.py:2108-2141,
+    # reward_function.py:90-118): per-building (type, exponent, band,
+    # lower_exponent, higher_exponent, coefficients); None = single reward
+    reward_per_building: Optional[Tuple[Tuple, ...]] = None
+    dyn_groups: Tuple[Tuple[int, int, int, int, int, int, int], ...] = ()
+    has_dynamics: bool = False
+    max_lookback: int = 0
+    has_occupant: bool = False
+    occupant_tree_depth: int = 0
+    has_charging_constraints: bool = False
+    n_charging_phases: int = 0
+    charging_penalty_coefficient: float = 1.0
+    any_cooling: bool = True             # any cooling demand or storage
+    any_heating: bool = True
+    any_dhw: bool = True
+    has_evs: bool = False
+    has_washing_machines: bool = False
+    n_chargers: int = 0
+    n_evs: int = 0
+    n_washing_machines: int = 0
+    # Electric_Vehicles_Reward_Function weights (reward_function.py:396-407)
+    ev_reward_weights: Tuple[float, ...] = (-5.0, -2.0, -10.0, -5.0, 10.0, 5.0, 5.0)
+
+    @property
+    def any_outage(self) -> bool:
+        return any(self.simulate_power_outage)
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Carried episode state. :func:`citylearn_tpu_torch.core.params.initial_state`
+    gives one district (``t`` a scalar, ``(B,)`` fields); batched states
+    add a leading ``D`` axis to every field."""
+    t: torch.Tensor                       # int32, episode-local step index
+    data_offset: torch.Tensor             # int32, episode window start in the sim range
+    battery_soc: torch.Tensor             # soc[t-1] (raw, pre standby loss)
+    battery_efficiency: torch.Tensor      # last applied efficiency (history[-1])
+    battery_degraded_capacity: torch.Tensor
+
+    def to(self, device) -> "EnvState":
+        return map_tensors(lambda x: x.to(device), self)
+
+
+@dataclasses.dataclass
+class StepOutput:
+    """Per-step results of a district batch, each ``(D, B)`` (the reward
+    ``(D, 1)`` for a central agent)."""
+    net_electricity_consumption: torch.Tensor
+    net_electricity_consumption_cost: torch.Tensor
+    net_electricity_consumption_emission: torch.Tensor
+    reward: torch.Tensor
+    non_shiftable_consumption: torch.Tensor
+    battery_consumption: torch.Tensor
+    solar_generation: torch.Tensor             # negative kWh
+    battery_soc: torch.Tensor
+    battery_balance: torch.Tensor
+    non_shiftable_load_met: torch.Tensor
+    # controlled demand series equal the data series on this district
+    cooling_demand_actual: torch.Tensor
+    heating_demand_actual: torch.Tensor
+    indoor_temperature: torch.Tensor
+    cooling_set_point: torch.Tensor
+    heating_set_point: torch.Tensor
