@@ -15,7 +15,18 @@ Phases, each of which raises on failure:
      ``evaluate_districts`` with a scripted policy (both kernel-backed),
      then at 168 steps the kernel-backed table against the stepped
      ``evaluate_districts`` at D=4096;
-  6. times with CUDA events: K1 per launch, its plain version, its bound.
+  6. times with CUDA events: K1 per launch, its plain version, its bound;
+  7. kernel vs plain: K2 (``battery_collect_chunk``) against its plain
+     PyTorch version at D=4096 districts x K=64 steps, with and without the
+     first-step accounting, and its times;
+  8. the training path, ``BatchedSAC`` at the JAX package's ``sac_train_step``
+     settings (D=4096, hidden 256x256, batch 256, 64-step chunks):
+     (a) the per-step and the kernel collect agree over 64 warmup steps;
+     (b) the main path, with the launch counts reset just before and read
+     just after: 80 training steps on the kernel path, whose updates must
+     move the policy; (c) the train step's rate over 3 more 64-step chunks,
+     split into collect and updates; (d) ``evaluate`` of the trained policy
+     over 168 steps, and of a scripted baseline through K1.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -42,7 +53,9 @@ from citylearn_tpu_torch.core.rollout import batched_initial_states
 from citylearn_tpu_torch.core.rollout_fast import battery_episode_inputs, eligible
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as k1
+from citylearn_tpu_torch.ops import collect as k2
 from citylearn_tpu_torch.synthetic import write_battery_pv_dataset
+from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 
 DEVICE = "cuda"
 D = 4096                      # districts per batch
@@ -56,6 +69,13 @@ TOL_STEP = 1e-6               # per-step record and final state
 TOL_SUM = 1e-5                # year-long reward/cost/emission sums
 TOL_TABLE = 1e-5              # KPI tables: ratios of sums taken in another order
 OUTPUTS = ("reward", "cost", "emission", "soc", "eff", "deg", "record")
+K_CHUNK = 64                  # K2's chunk: TrainConfig.collect_chunk
+COLLECT_OUTPUTS = ("reward", "soc", "eff", "deg")
+# the JAX package's sac_train_step bench row (bench.py:286-290)
+TRAIN = dict(n_districts=D, hidden=(256, 256), batch_size=256,
+             replay_capacity=D * 64, collect_chunk=K_CHUNK)
+TRAIN_EPISODE = 720
+TOL_PATHS = 2e-5              # per-step vs kernel collect: replay rows and state
 # KPIs that are NaN by the reference's semantics on data with no occupants
 # and no outage (a proportion of zero occupied or zero outage steps)
 NAN_KPIS = {"discomfort_proportion", "discomfort_cold_proportion",
@@ -235,6 +255,141 @@ def main(json_path=None):
                    bound_ops=n_ops, bound_bytes=n_bytes,
                    district_steps_per_s=D * S / kernel_ms * 1e3, smi_after=power)
 
+    phase(f"7. K2 vs plain at D={D}, K={K_CHUNK}")
+    prep = k2.prepare_battery_collect(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    streams = (rand(-1.0, 1.0, (K_CHUNK, D, N_BUILDINGS)),
+               rand(0.2, 3.0, (K_CHUNK, D, N_BUILDINGS)),
+               rand(0.0, 3.0, (K_CHUNK, D, N_BUILDINGS)))
+    cap = params.battery.capacity
+    chunk_state = (rand(0.0, 1.0, (D, N_BUILDINGS)), rand(0.85, 0.95, (D, N_BUILDINGS)),
+                   (cap * rand(0.9, 1.0, (D, N_BUILDINGS))).contiguous())
+    k2_max_abs = 0.0
+    for first in (True, False):
+        ours = k2.battery_collect_chunk(prep, *streams, *chunk_state, first_chunk=first)
+        torch.cuda.synchronize()
+        ref = k2.battery_collect_chunk_reference(prep, *streams, *chunk_state,
+                                                 first_chunk=first)
+        for name, a, b in zip(COLLECT_OUTPUTS, ours, ref):
+            diff, rel = scaled_error(a, b)
+            k2_max_abs = max(k2_max_abs, diff)
+            print(f"first_chunk={first!s:5} {name:6s} max|diff| {diff:.3e}  scaled {rel:.3e}  "
+                  f"(tolerance {TOL_STEP:g})")
+            if not rel <= TOL_STEP:
+                raise AssertionError(f"K2 {name} disagrees with its plain version: {rel}")
+    k2_ms = time_cuda(lambda: k2.battery_collect_chunk(prep, *streams, *chunk_state,
+                                                       first_chunk=False), 50)
+    k2_plain_ms = time_cuda(lambda: k2.battery_collect_chunk_reference(
+        prep, *streams, *chunk_state, first_chunk=False), 3)
+    n_knots = prep.curves[0].shape[0]
+    k2_bytes = 4 * (4 * K_CHUNK * D * B + 6 * D * B + 8 * B + 4 * n_knots * B)
+    k2_ops = k2.collect_operation_count(prep, streams[0])
+    k2_bytes_ms, k2_ops_ms = k2_bytes / PEAK_BYTES * 1e3, k2_ops / PEAK_FP32 * 1e3
+    k2_bound_ms = max(k2_bytes_ms, k2_ops_ms)
+    print(f"K2 {k2_ms:.4f} ms/launch ({D * K_CHUNK / k2_ms * 1e3:.4g} district-steps/s); "
+          f"plain {k2_plain_ms:.3f} ms; bound {k2_bound_ms:.5f} ms ({k2_ops:.4g} fp32 ops -> "
+          f"{k2_ops_ms:.5f} ms, {k2_bytes} bytes -> {k2_bytes_ms:.5f} ms)")
+    results.update(k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound_ms=k2_bound_ms,
+                   k2_bound_ops=k2_ops, k2_bound_bytes=k2_bytes, k2_max_abs_err=k2_max_abs)
+
+    phase(f"8. training at D={D}, hidden {TRAIN['hidden']}, {K_CHUNK}-step chunks")
+    with tempfile.TemporaryDirectory() as tmp:
+        schema = write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED)
+        trainer = lambda collect, warmup: BatchedSAC(
+            schema, TrainConfig(collect=collect, warmup_steps=warmup, **TRAIN),
+            random_seed=SEED, episode_time_steps=TRAIN_EPISODE, device=dev)
+        scan, kern = trainer("scan", 10**9), trainer("kernel", 10**9)
+        tr = trainer("kernel", 8)
+    if scan.use_kernel_collect or not kern.use_kernel_collect or not tr.use_kernel_collect:
+        raise AssertionError("the trainers did not take the collect paths asked for")
+
+    # (a) the per-step and the kernel collect, 64 warmup steps each
+    for t in (scan, kern):
+        t.train(K_CHUNK, chunk=K_CHUNK)
+    torch.cuda.synchronize()
+    if not torch.equal(scan.state.replay_act, kern.state.replay_act):
+        raise AssertionError("per-step and kernel collect drew different actions")
+    paths_err = 0.0
+    pairs = [(f, getattr(scan.state, f), getattr(kern.state, f))
+             for f in ("replay_obs", "replay_rew", "replay_next", "replay_done", "cur_obs")]
+    pairs += [(f, getattr(scan.state.env_state, f), getattr(kern.state.env_state, f))
+              for f in ("battery_soc", "battery_efficiency", "battery_degraded_capacity")]
+    for name, a, b in pairs:
+        diff = float((a - b).abs().max())
+        paths_err = max(paths_err, diff)
+        if not diff <= TOL_PATHS:
+            raise AssertionError(f"per-step vs kernel collect: {name} differs by {diff}")
+    print(f"(a) per-step vs kernel collect over {K_CHUNK} warmup steps: actions bit-equal, "
+          f"replay rows and battery state max|diff| {paths_err:.3e} (tolerance {TOL_PATHS:g})")
+    del scan, kern
+
+    # (b) the main path: training on the kernel path
+    w0 = tr.state.nets.policy.mean_w.detach().clone()
+    k1.battery_episode.launches = 0
+    k2.battery_collect_chunk.launches = 0
+    hist = tr.train(16, chunk=16) + tr.train(K_CHUNK, chunk=K_CHUNK)
+    torch.cuda.synchronize()
+    k2_launches = k2.battery_collect_chunk.launches
+    moved = float((tr.state.nets.policy.mean_w.detach() - w0).abs().max())
+    print(f"(b) 80 steps: K2 launches {k2_launches}, mean reward per step {hist}, "
+          f"policy head moved by {moved:.3e}")
+    if k2_launches == 0:
+        raise AssertionError("the training path never launched K2")
+    if not moved > 0:
+        raise AssertionError("no SAC update changed the policy")
+    if not all(torch.isfinite(torch.tensor(hist))):
+        raise AssertionError(f"non-finite rewards: {hist}")
+
+    # (c) the train step's rate, split into collect and updates
+    chunk_ms = time_cuda(lambda: tr.train(K_CHUNK, chunk=K_CHUNK), 3)
+    tr._update = lambda t, n_slots: None       # the same chunks without their updates
+    collect_ms = time_cuda(lambda: tr.train(K_CHUNK, chunk=K_CHUNK), 3)
+    del tr._update
+    update_ms = chunk_ms - collect_ms
+    train_rate = D * K_CHUNK / chunk_ms * 1e3
+    print(f"(c) train step: {chunk_ms:.2f} ms per {K_CHUNK}-step chunk = {train_rate:.4g} "
+          f"district-steps/s; collect (policy sweep, K2, replay writes) {collect_ms:.2f} ms, "
+          f"{K_CHUNK} updates {update_ms:.2f} ms")
+    # where a chunk's time goes: one more chunk under the profiler (which
+    # slows the host side); device busy time against the wall clock
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(K_CHUNK, chunk=K_CHUNK)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    ops = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    print(f"profiled chunk: wall {profiled_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"(idle {1 - busy_ms / profiled_ms:.1%}); top operations by device time, then "
+          f"by host time:")
+    for key in ("self_device_time_total", "self_cpu_time_total"):
+        for e in sorted(ops, key=lambda e: -getattr(e, key))[:8]:
+            print(f"  {e.key[:56]:56s} device {e.self_device_time_total / 1e3:8.2f} ms  "
+                  f"host {e.self_cpu_time_total / 1e3:8.2f} ms  x{e.count}")
+    results.update(k2_launches=k2_launches, train_chunk_ms=chunk_ms,
+                   train_collect_ms=collect_ms, train_updates_ms=update_ms,
+                   train_district_steps_per_s=train_rate, paths_err=paths_err,
+                   profiled_chunk_ms=profiled_ms, profiled_device_busy_ms=busy_ms)
+
+    # (d) evaluation: the trained policy, and a scripted baseline through K1
+    t0 = time.perf_counter()
+    learned = tr.evaluate(n_steps=SHORT_STEPS)
+    torch.cuda.synchronize()
+    results["train_evaluate_168_s"] = time.perf_counter() - t0
+    check_table(learned, (D,), "BatchedSAC.evaluate")
+    k1.battery_episode.launches = 0
+    baseline = tr.evaluate(policy=policy)
+    torch.cuda.synchronize()
+    check_table(baseline, (D,), "BatchedSAC.evaluate(ScriptedPolicy)")
+    if k1.battery_episode.launches == 0:
+        raise AssertionError("evaluate(policy=ScriptedPolicy) did not launch K1")
+    print(f"(d) evaluate at S={SHORT_STEPS}: {results['train_evaluate_168_s']:.2f} s, "
+          f"cost_total {float(learned['district|cost_total'].mean()):.6f}; scripted "
+          f"baseline through K1 ({k1.battery_episode.launches} launch), cost_total "
+          f"{float(baseline['district|cost_total'][0]):.6f}")
+
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",
         "source": "citylearn_tpu_torch/csrc/battery_episode.cu",
@@ -242,6 +397,13 @@ def main(json_path=None):
         "launches": launches, "max_abs_err": max_abs, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None}, {
+        "name": "battery_collect_chunk", "route": "cuda",
+        "source": "citylearn_tpu_torch/csrc/battery_collect.cu",
+        "replaces": "citylearn_tpu/ops/pallas_collect.py:214",
+        "launches": k2_launches, "max_abs_err": k2_max_abs, "ms": k2_ms,
+        "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+        "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
         "library_ms": None}]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

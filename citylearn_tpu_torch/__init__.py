@@ -7,6 +7,13 @@ with the normalized KPI table (``core.evaluate``), and run whole
 open-loop episodes as one hand-written CUDA kernel launch
 (``ops.battery``, ``core.rollout_fast``, ``core.evaluate_fast``).
 
+The training path runs too: ``train.BatchedSAC`` trains per-building SAC
+agents (``agents.sac``, networks stacked over the agent axis) on
+thousands of district copies, encoding observations with
+``core.obs_encoder`` and collecting experience either step by step or in
+chunks whose battery recurrence is one launch of the hand-written
+collect kernel (``ops.collect``).
+
 The package imports ``torch`` and never ``jax`` nor the JAX package.
 Entry points take a ``device`` argument: ``None`` means the CUDA card,
 and raises when there is none; pass ``device="cpu"`` to run the plain
@@ -32,6 +39,8 @@ _EXPORTS = {
     "run_battery_episode": "citylearn_tpu_torch.core.rollout_fast",
     "ScriptedPolicy": "citylearn_tpu_torch.core.evaluate_fast",
     "evaluate_scripted": "citylearn_tpu_torch.core.evaluate_fast",
+    "BatchedSAC": "citylearn_tpu_torch.train",
+    "TrainConfig": "citylearn_tpu_torch.train",
 }
 
 

@@ -1,0 +1,285 @@
+"""Soft actor-critic networks and update, stacked over the agent axis.
+
+The JAX package builds one agent's networks as parameter pytrees and
+``vmap``s its functions over the agent axis ``A``
+(``citylearn_tpu/agents/sac.py``, ``citylearn_tpu/train.py``). Here each
+network is an ``nn.Module`` whose parameters carry that axis: a layer's
+weight is (A, in, out) and its input (A, N, in), so one batched matrix
+product applies every agent's layer at once. Architecture as the
+reference's (``rl.py:13-132``): twin soft-Q networks with LayerNorm, a
+tanh-Gaussian policy with action scale and bias, Huber Q loss, Polyak
+target updates and Adam.
+
+Gaussian noise is an argument of :func:`policy_sample` and
+:func:`sac_update`, so that a caller decides where the random numbers
+come from (the trainer's per-step generators, or a test's numpy draws).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from citylearn_tpu_torch import resolve_device
+
+LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
+EPS = 1e-6
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8     # optax.adam's defaults
+# 0.5 * log(2 pi) rounded as the JAX package rounds it: a float32 log
+HALF_LOG_2PI = float(0.5 * np.log(np.float32(2 * np.pi)))
+
+
+def _uniform(shape, bound: float, generator: torch.Generator, device) -> nn.Parameter:
+    u = torch.rand(shape, generator=generator, device=device)
+    return nn.Parameter(u * (2.0 * bound) - bound)
+
+
+def _mlp_init(n_agents: int, sizes: Sequence[int], generator: torch.Generator, device,
+              init_w: float = 3e-3, final_uniform: bool = True
+              ) -> Tuple[nn.ParameterList, nn.ParameterList]:
+    """Weights (A, in, out) and biases (A, out) of an MLP: torch
+    ``nn.Linear``'s U(-1/sqrt(fan_in), 1/sqrt(fan_in)), and U(-init_w,
+    init_w) for the last layer when ``final_uniform``."""
+    ws, bs = nn.ParameterList(), nn.ParameterList()
+    for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        last = i == len(sizes) - 2
+        bound = init_w if last and final_uniform else 1.0 / math.sqrt(fan_in)
+        ws.append(_uniform((n_agents, fan_in, fan_out), bound, generator, device))
+        bs.append(_uniform((n_agents, fan_out), bound, generator, device))
+    return ws, bs
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(A, N, in) @ (A, in, out) + (A, out) -> (A, N, out)."""
+    return torch.matmul(x, w) + b[:, None, :]
+
+
+class SoftQ(nn.Module):
+    """SoftQNetwork (``rl.py:115-132``) for A agents: ln(relu(linear)) per
+    hidden layer, then a linear head to one value."""
+
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: Sequence[int],
+                 generator: torch.Generator = None, device=None):
+        super().__init__()
+        self.w, self.b = _mlp_init(n_agents, [obs_dim + act_dim, *hidden, 1],
+                                   generator, device)
+        self.ln_scale = nn.ParameterList(
+            [nn.Parameter(torch.ones(n_agents, h, device=device)) for h in hidden])
+        self.ln_bias = nn.ParameterList(
+            [nn.Parameter(torch.zeros(n_agents, h, device=device)) for h in hidden])
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        """(A, N, K), (A, N, M) -> (A, N, 1)."""
+        x = torch.cat([obs, act], dim=-1)
+        for i in range(len(self.ln_scale)):
+            x = torch.relu(_linear(x, self.w[i], self.b[i]))
+            # LayerNorm written out as the JAX package does, biased variance
+            mean = x.mean(-1, keepdim=True)
+            var = ((x - mean) ** 2).mean(-1, keepdim=True)
+            x = ((x - mean) / torch.sqrt(var + 1e-5) * self.ln_scale[i][:, None]
+                 + self.ln_bias[i][:, None])
+        return _linear(x, self.w[-1], self.b[-1])
+
+    def jax_paths(self) -> List[Tuple[tuple, nn.Parameter]]:
+        """(path into the JAX package's parameter tree, parameter) pairs."""
+        n = len(self.w)
+        return ([(("layers", i, "w"), self.w[i]) for i in range(n)]
+                + [(("layers", i, "b"), self.b[i]) for i in range(n)]
+                + [(("ln", i, "scale"), p) for i, p in enumerate(self.ln_scale)]
+                + [(("ln", i, "bias"), p) for i, p in enumerate(self.ln_bias)])
+
+
+class Policy(nn.Module):
+    """Tanh-Gaussian policy trunk and heads (``rl.py:13-68``) for A agents."""
+
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int, hidden: Sequence[int],
+                 generator: torch.Generator = None, device=None):
+        super().__init__()
+        self.trunk_w, self.trunk_b = _mlp_init(n_agents, [obs_dim, *hidden], generator,
+                                               device, final_uniform=False)
+        (self.mean_w,), (self.mean_b,) = _mlp_init(n_agents, [hidden[-1], act_dim],
+                                                   generator, device)
+        (self.log_std_w,), (self.log_std_b,) = _mlp_init(n_agents, [hidden[-1], act_dim],
+                                                         generator, device)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(A, N, K) -> mean, log_std, each (A, N, M)."""
+        x = obs
+        for w, b in zip(self.trunk_w, self.trunk_b):
+            x = torch.relu(_linear(x, w, b))
+        mean = _linear(x, self.mean_w, self.mean_b)
+        log_std = torch.clamp(_linear(x, self.log_std_w, self.log_std_b),
+                              LOG_STD_MIN, LOG_STD_MAX)
+        return mean, log_std
+
+    def jax_paths(self) -> List[Tuple[tuple, nn.Parameter]]:
+        n = len(self.trunk_w)
+        return ([(("trunk", i, "w"), self.trunk_w[i]) for i in range(n)]
+                + [(("trunk", i, "b"), self.trunk_b[i]) for i in range(n)]
+                + [(("mean", "w"), self.mean_w), (("mean", "b"), self.mean_b),
+                   (("log_std", "w"), self.log_std_w), (("log_std", "b"), self.log_std_b)])
+
+
+def policy_sample(policy: Policy, obs: torch.Tensor, noise: torch.Tensor,
+                  action_scale: torch.Tensor, action_bias: torch.Tensor,
+                  act_mask: torch.Tensor = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tanh-Gaussian sample with the bound-corrected log-prob
+    (``rl.py:56-68``) from standard normal ``noise`` (A, N, M).
+    ``action_scale``/``action_bias``/``act_mask`` are (A, M); padded
+    action dims (mask 0) add nothing to the log-prob and act 0. Returns
+    (action (A, N, M), log_prob (A, N, 1), deterministic action)."""
+    scale, bias = action_scale[:, None], action_bias[:, None]
+    mean, log_std = policy(obs)
+    std = torch.exp(log_std)
+    x_t = mean + std * noise
+    y_t = torch.tanh(x_t)
+    action = y_t * scale + bias
+    log_prob = (-0.5 * ((x_t - mean) / std) ** 2 - log_std
+                - HALF_LOG_2PI)
+    log_prob = log_prob - torch.log(scale * (1 - y_t ** 2) + EPS)
+    det_action = torch.tanh(mean) * scale + bias
+    if act_mask is not None:
+        mask = act_mask[:, None]
+        log_prob, action, det_action = log_prob * mask, action * mask, det_action * mask
+    return action, log_prob.sum(-1, keepdim=True), det_action
+
+
+@dataclasses.dataclass
+class AgentNets:
+    """The twin Q networks, their targets, the policy and one Adam per
+    trained network, all stacked over the agent axis."""
+    q1: SoftQ
+    q2: SoftQ
+    q1_target: SoftQ
+    q2_target: SoftQ
+    policy: Policy
+    q1_opt: torch.optim.Adam
+    q2_opt: torch.optim.Adam
+    policy_opt: torch.optim.Adam
+
+    NETS = ("q1", "q2", "q1_target", "q2_target", "policy")
+    OPTS = ("q1_opt", "q2_opt", "policy_opt")
+
+    def state_dict(self) -> Dict[str, dict]:
+        return {k: getattr(self, k).state_dict() for k in self.NETS + self.OPTS}
+
+    def load_state_dict(self, state: Dict[str, dict]):
+        for k in self.NETS + self.OPTS:
+            getattr(self, k).load_state_dict(state[k])
+
+
+def _adam(module: nn.Module, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(module.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
+def make_agent_nets(n_agents: int, obs_dim: int, act_dim: int, hidden: Sequence[int],
+                    lr: float, generator: torch.Generator, device=None) -> AgentNets:
+    """Freshly initialised networks; the targets start as copies."""
+    dev = resolve_device(device)
+    q1 = SoftQ(n_agents, obs_dim, act_dim, hidden, generator, dev)
+    q2 = SoftQ(n_agents, obs_dim, act_dim, hidden, generator, dev)
+    policy = Policy(n_agents, obs_dim, act_dim, hidden, generator, dev)
+    return AgentNets(q1=q1, q2=q2, q1_target=copy.deepcopy(q1),
+                     q2_target=copy.deepcopy(q2), policy=policy,
+                     q1_opt=_adam(q1, lr), q2_opt=_adam(q2, lr),
+                     policy_opt=_adam(policy, lr))
+
+
+def nets_from_numpy(tree, lr: float = 3e-4, device=None) -> AgentNets:
+    """The port's :class:`AgentNets` from the JAX package's ``AgentNets``
+    as numpy arrays (``jax.tree_util.tree_map(np.asarray, nets)``):
+    weights, targets and the optax Adam state (``mu``/``nu``/``count``
+    become ``exp_avg``/``exp_avg_sq``/``step``)."""
+    dev = resolve_device(device)
+    hidden = [int(np.shape(ln["scale"])[-1]) for ln in tree.q1["ln"]]
+    n_agents, in_dim = np.shape(tree.q1["layers"][0]["w"])[:2]
+    act_dim = int(np.shape(tree.policy["mean"]["w"])[-1])
+    gen = torch.Generator(device=dev)
+    nets = make_agent_nets(int(n_agents), int(in_dim) - act_dim, act_dim, hidden, lr,
+                           gen, dev)
+
+    def at(sub, path):
+        for k in path:
+            sub = sub[k]
+        return torch.tensor(np.asarray(sub), device=dev)
+
+    with torch.no_grad():
+        for name in AgentNets.NETS:
+            for path, p in getattr(nets, name).jax_paths():
+                p.copy_(at(getattr(tree, name), path))
+    for name in ("q1", "q2", "policy"):
+        adam_state = getattr(tree, f"{name}_opt")[0]     # optax ScaleByAdamState
+        opt = getattr(nets, f"{name}_opt")
+        step = float(np.asarray(adam_state.count).reshape(-1)[0])
+        for path, p in getattr(nets, name).jax_paths():
+            opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                            "exp_avg": at(adam_state.mu, path),
+                            "exp_avg_sq": at(adam_state.nu, path)}
+    return nets
+
+
+def huber_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``optax.huber_loss`` with delta 1, elementwise."""
+    err = torch.abs(pred - target)
+    quadratic = torch.clamp(err, max=1.0)
+    return 0.5 * quadratic ** 2 + (err - quadratic)
+
+
+def _adam_step(opt: torch.optim.Adam, params: List[nn.Parameter], grads):
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+
+
+def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
+               action_scale: torch.Tensor, action_bias: torch.Tensor,
+               act_mask: torch.Tensor, *, alpha: float, discount: float,
+               tau: float) -> Dict[str, torch.Tensor]:
+    """One SAC gradient step of every agent, in place (the per-agent
+    update of ``citylearn_tpu/train.py:339-375`` over the stacked nets).
+
+    ``batch`` = (obs (A, N, K), act (A, N, M), reward (A, N), next_obs
+    (A, N, K), done (A, N)); ``noise`` = the standard normal draws (A, N,
+    M) of the next-action sample and of the policy-loss sample. Each
+    loss is a sum over agents of each agent's mean, so every agent's
+    gradient is its own loss's. Returns the per-agent (A,) losses; each
+    parameter's ``.grad`` holds the gradient applied."""
+    o, a, r, n, d = batch
+    noise_next, noise_pi = noise
+    with torch.no_grad():
+        next_a, next_log_pi, _ = policy_sample(nets.policy, n, noise_next,
+                                               action_scale, action_bias, act_mask)
+        tq = torch.minimum(nets.q1_target(n, next_a), nets.q2_target(n, next_a)) \
+            - alpha * next_log_pi
+        q_target = r[..., None] + (1 - d[..., None]) * discount * tq
+
+    losses = {}
+    for name in ("q1", "q2"):
+        q, opt = getattr(nets, name), getattr(nets, f"{name}_opt")
+        loss = huber_loss(q(o, a), q_target).mean(dim=(1, 2))
+        params = list(q.parameters())
+        _adam_step(opt, params, torch.autograd.grad(loss.sum(), params))
+        losses[name] = loss.detach()
+
+    # the policy loss reads the UPDATED Q nets; no gradient flows into them
+    new_a, log_pi, _ = policy_sample(nets.policy, o, noise_pi, action_scale,
+                                     action_bias, act_mask)
+    q_new = torch.minimum(nets.q1(o, new_a), nets.q2(o, new_a))
+    loss = (alpha * log_pi - q_new).mean(dim=(1, 2))
+    params = list(nets.policy.parameters())
+    _adam_step(nets.policy_opt, params, torch.autograd.grad(loss.sum(), params))
+    losses["policy"] = loss.detach()
+
+    with torch.no_grad():
+        for tgt, src in ((nets.q1_target, nets.q1), (nets.q2_target, nets.q2)):
+            t, s = list(tgt.parameters()), list(src.parameters())
+            torch._foreach_mul_(t, 1 - tau)
+            torch._foreach_add_(t, torch._foreach_mul(s, tau))
+    return losses

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from citylearn_tpu_torch import resolve_device
-from citylearn_tpu_torch.compiler.spec import DistrictSpec
+from citylearn_tpu_torch.compiler.spaces import heat_pump_cop_np
+from citylearn_tpu_torch.compiler.spec import BuildingSpec, DistrictSpec
 from citylearn_tpu_torch.core.types import (
     BatteryParams,
     DistrictParams,
@@ -24,6 +25,21 @@ from citylearn_tpu_torch.core.types import (
     SeriesData,
     StaticConfig,
 )
+
+
+# Observation names whose returned-at-t value is state-derived and therefore
+# *zero* at any index the step has not written yet (the reference returns
+# observations at t+1 before anything is written there)
+DERIVED_ZERO_OBSERVATIONS = frozenset({
+    "cooling_storage_soc", "heating_storage_soc", "dhw_storage_soc",
+    "electrical_storage_soc", "net_electricity_consumption",
+    "cooling_electricity_consumption", "heating_electricity_consumption",
+    "dhw_electricity_consumption", "cooling_storage_electricity_consumption",
+    "heating_storage_electricity_consumption",
+    "dhw_storage_electricity_consumption",
+    "electrical_storage_electricity_consumption",
+    "washing_machine_electricity_consumption",
+})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +69,59 @@ def _stack(spec: DistrictSpec, key: str, dtype=np.float32) -> np.ndarray:
     sl = slice(spec.simulation_start_time_step, spec.simulation_end_time_step + 1)
     cols = [b.series[key][sl] for b in spec.buildings]
     return np.stack(cols, axis=1).astype(dtype)
+
+
+def _obs_series(b: BuildingSpec, name: str, sl: slice) -> np.ndarray:
+    """Data-driven value of observation ``name`` for one building over the
+    simulation range (reference ``building.py:1336-1481`` data paths)."""
+    s = b.series
+    n = len(s["hour"][sl])
+    if name in DERIVED_ZERO_OBSERVATIONS:
+        return np.zeros(n, np.float32)
+    if name == "power_outage":
+        # the compiler refuses stochastic outage signals
+        if b.simulate_power_outage:
+            return s["power_outage"][sl]
+        return np.zeros(n, np.float32)
+    if name == "solar_generation":
+        return np.abs(b.pv_nominal_power * s["solar_generation"][sl] / 1000.0)
+    if name == "cooling_device_efficiency":
+        return heat_pump_cop_np(s["outdoor_dry_bulb_temperature"][sl],
+                                b.cooling_device.efficiency,
+                                b.cooling_device.target_cooling_temperature, False)
+    if name in ("heating_device_efficiency", "dhw_device_efficiency"):
+        device = b.heating_device if name == "heating_device_efficiency" else b.dhw_device
+        if device.is_heat_pump:
+            return heat_pump_cop_np(s["outdoor_dry_bulb_temperature"][sl],
+                                    device.efficiency,
+                                    device.target_heating_temperature, True)
+        return np.full(n, device.efficiency, np.float32)
+    if name == "indoor_dry_bulb_temperature_cooling_delta":
+        return (s["indoor_dry_bulb_temperature"][sl]
+                - s["indoor_dry_bulb_temperature_cooling_set_point"][sl])
+    if name == "indoor_dry_bulb_temperature_heating_delta":
+        return (s["indoor_dry_bulb_temperature"][sl]
+                - s["indoor_dry_bulb_temperature_heating_set_point"][sl])
+    if name in s:
+        return s[name][sl]
+    return np.zeros(n, np.float32)
+
+
+def _obs_static(spec: DistrictSpec, layout: ObsLayout) -> np.ndarray:
+    """(T, B, K_union) data-driven observation matrix. Charger and
+    washing-machine columns (the JAX package's ``_ev_obs_columns``) need
+    blocks the port does not carry yet."""
+    if any(b.chargers or b.washing_machines for b in spec.buildings):
+        raise NotImplementedError("observation columns of chargers and washing "
+                                  "machines are not ported yet")
+    sl = slice(spec.simulation_start_time_step, spec.simulation_end_time_step + 1)
+    obs = np.zeros((spec.simulation_time_steps, spec.n_buildings,
+                    len(layout.union_names)), np.float32)
+    for bi, b in enumerate(spec.buildings):
+        for ki, name in enumerate(layout.union_names):
+            if name in b.active_observations:
+                obs[:, bi, ki] = _obs_series(b, name, sl)
+    return obs
 
 
 def _episode_steps(spec: DistrictSpec) -> int:
@@ -166,15 +235,18 @@ def pack(spec: DistrictSpec, device=None
                     or b.dhw_storage.capacity > 0 for b in spec.buildings),
         **_reward_config(spec),
     )
-    return cfg, DistrictParams(series=series, battery=battery), build_obs_layout(spec)
+    layout = build_obs_layout(spec)
+    params = DistrictParams(series=series, battery=battery,
+                            obs_static=t(_obs_static(spec, layout)))
+    return cfg, params, layout
 
 
 def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> DistrictParams:
     """:class:`DistrictParams` from a flat ``{"series.hour": array, ...}``
     dict keyed by field path — the JAX package's packed parameters
     carried across as numpy arrays. Keys of blocks the battery+PV
-    district does not read (HVAC devices, tanks, observation matrix) are
-    ignored; a missing key raises ``KeyError``."""
+    district does not read (HVAC devices, tanks) are ignored; a missing
+    key raises ``KeyError``."""
     dev = resolve_device(device)
 
     def build(cls, prefix):
@@ -183,7 +255,9 @@ def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> DistrictParam
                       for f in dataclasses.fields(cls)})
 
     return DistrictParams(series=build(SeriesData, "series"),
-                          battery=build(BatteryParams, "battery"))
+                          battery=build(BatteryParams, "battery"),
+                          obs_static=torch.tensor(np.asarray(tree["obs_static"]),
+                                                  device=dev))
 
 
 def initial_state(cfg: StaticConfig, params: DistrictParams,

@@ -64,6 +64,23 @@ def _n_knots(curves_x) -> int:
     return n_knots
 
 
+def battery_tables(params: DistrictParams):
+    """The battery kernels' parameter rows and curves: ``bparams`` (8, B)
+    rows capacity, nominal_power, loss_coefficient, initial_soc,
+    depth_of_discharge, capacity_loss_coefficient and two zero rows; the
+    four curves knot-major (n_knots, B), trimmed by :func:`_n_knots`."""
+    bat = params.battery
+    zero = torch.zeros_like(bat.capacity)
+    n_knots = _n_knots((bat.power_efficiency_curve_x, bat.capacity_power_curve_x))
+    bparams = torch.stack([bat.capacity, bat.nominal_power, bat.loss_coefficient,
+                           bat.initial_soc, bat.depth_of_discharge,
+                           bat.capacity_loss_coefficient, zero, zero])
+    curves = tuple(c.t()[:n_knots].contiguous() for c in (
+        bat.power_efficiency_curve_x, bat.power_efficiency_curve_y,
+        bat.capacity_power_curve_x, bat.capacity_power_curve_y))
+    return bparams, curves
+
+
 def battery_episode_inputs(cfg: StaticConfig, params: DistrictParams,
                            n_districts: int, action_table,
                            n_steps: Optional[int] = None,
@@ -77,8 +94,7 @@ def battery_episode_inputs(cfg: StaticConfig, params: DistrictParams,
     ser = params.series
     hours = ser.hour[off:off + S, 0].cpu().numpy()
     bat = params.battery
-    zero = torch.zeros_like(bat.capacity)
-    n_knots = _n_knots((bat.power_efficiency_curve_x, bat.capacity_power_curve_x))
+    bparams, curves = battery_tables(params)
     tile = lambda v: v.expand(n_districts, B).contiguous()
     return dict(
         actions=torch.tensor(expand_action_plan(action_table, hours, S, B),
@@ -86,12 +102,8 @@ def battery_episode_inputs(cfg: StaticConfig, params: DistrictParams,
         series=tuple(_pad_time(x, S, off) for x in (
             ser.non_shiftable_load, ser.solar_generation,
             ser.electricity_pricing, ser.carbon_intensity)),
-        bparams=torch.stack([bat.capacity, bat.nominal_power, bat.loss_coefficient,
-                             bat.initial_soc, bat.depth_of_discharge,
-                             bat.capacity_loss_coefficient, zero, zero]),
-        curves=tuple(c.t()[:n_knots].contiguous() for c in (
-            bat.power_efficiency_curve_x, bat.power_efficiency_curve_y,
-            bat.capacity_power_curve_x, bat.capacity_power_curve_y)),
+        bparams=bparams,
+        curves=curves,
         soc0=tile(bat.initial_soc), eff0=tile(bat.efficiency), deg0=tile(bat.capacity),
         hours_ratio=cfg.seconds_per_time_step / 3600.0,
         ratio=cfg.time_step_ratio)

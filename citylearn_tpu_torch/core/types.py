@@ -82,9 +82,13 @@ class SeriesData:
 
 @dataclasses.dataclass
 class DistrictParams:
-    """Everything the battery+PV step reads, on one device."""
+    """Everything the battery+PV step and the trainer read, on one device."""
     series: SeriesData
     battery: BatteryParams
+    # (T, B, K_union) data-driven observation values: the observation
+    # returned at sim-range row tau is obs_static[tau] (state-derived
+    # columns read zero there; see core/params.DERIVED_ZERO_OBSERVATIONS)
+    obs_static: torch.Tensor
 
     @property
     def device(self) -> torch.device:

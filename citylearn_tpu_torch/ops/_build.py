@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function and is
 compiled by ``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the root
-of the checkout, keyed on a hash of the source and the flags, then
+of the checkout, keyed on a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, then
 loaded with ``ctypes``. A build that already exists is reused; several
 missing libraries compile in parallel, one ``nvcc`` process each.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("battery_episode",)
+SOURCES = ("battery_episode", "battery_collect")
 # -fmad=false: no multiply-add contraction, so each kernel rounds every
 # operation as its plain PyTorch version does (IEEE division and square
 # root are nvcc's defaults without --use_fast_math)
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -27,7 +27,7 @@ import torch
 from citylearn_tpu_torch.ops import _build
 
 ZERO = 1e-6       # reference citylearn/data.py:19
-MAX_KNOTS = 12    # csrc/battery_episode.cu MAX_KNOTS (compiler/spec.CURVE_PAD)
+MAX_KNOTS = 12    # csrc/battery_common.cuh MAX_KNOTS (compiler/spec.CURVE_PAD)
 N_REC = 3         # recorded series rows: net, battery balance, battery soc
 
 
@@ -55,6 +55,48 @@ def _interp(q: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor
     return y0 + (q - x0) * (y1 - y0) / (x1 - x0)
 
 
+def battery_event(bparams: torch.Tensor, curves: Sequence[torch.Tensor],
+                  soc: torch.Tensor, eff: torch.Tensor, deg: torch.Tensor,
+                  action: torch.Tensor, hours_ratio: float, ratio: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One battery event of a (D, B) batch under ``action`` ((B,) or
+    (D, B)), rounding every operation as ``csrc/battery_common.cuh``'s
+    ``Battery::step`` does. Returns (soc, efficiency, degraded capacity,
+    energy balance) after the event."""
+    pec_x, pec_y, cpc_x, cpc_y = curves
+    cap, nominal = bparams[0], bparams[1]
+    keep = 1.0 - bparams[2]
+    soc_floor = 1.0 - bparams[4]
+    clc = bparams[5]
+    cap_safe = torch.clamp(cap, min=ZERO)
+    nominal_safe = torch.clamp(nominal, min=ZERO)
+    energy = action * nominal * hours_ratio
+    energy_init = torch.clamp(soc * cap * keep, min=0.0)
+    max_power = nominal * _interp(energy_init / cap_safe, cpc_x, cpc_y)
+
+    charging = energy >= 0.0
+    e_chg = torch.minimum(torch.minimum(max_power, nominal.expand_as(max_power)),
+                          torch.minimum(deg - energy_init, energy))
+    eff_chg = _interp(torch.abs(torch.minimum(energy, max_power)) / nominal_safe,
+                      pec_x, pec_y)
+    e_dod = -torch.clamp((soc - soc_floor) * cap * torch.sqrt(eff), min=0.0)
+    e_dis = torch.maximum(torch.maximum(-max_power, e_dod), energy)
+    eff_dis = _interp(torch.minimum(torch.abs(energy), max_power) / nominal_safe,
+                      pec_x, pec_y)
+    e = torch.where(charging, e_chg, e_dis)
+    new_eff = torch.where(charging, eff_chg, eff_dis)
+    rt = torch.sqrt(new_eff)
+    fin = torch.where(e >= 0.0, torch.minimum(energy_init + e * rt, cap.expand_as(e)),
+                      torch.clamp(energy_init + e / rt, min=0.0))
+    new_soc = fin / cap_safe
+    delta = fin - energy_init
+    balance = torch.where(delta >= 0.0, delta / rt, delta * rt)
+    new_deg = torch.clamp(
+        deg - (clc * cap * torch.abs(balance) / (2.0 * torch.clamp(deg, min=ZERO))) * ratio,
+        min=0.0)
+    return new_soc, new_eff, new_deg, balance
+
+
 def battery_episode_reference(actions: torch.Tensor, series: Sequence[torch.Tensor],
                               bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                               soc0: torch.Tensor, eff0: torch.Tensor, deg0: torch.Tensor,
@@ -63,54 +105,23 @@ def battery_episode_reference(actions: torch.Tensor, series: Sequence[torch.Tens
     """Plain PyTorch version of :func:`battery_episode`: a loop over the S
     steps on (D, B) tensors, rounding every operation as the kernel does."""
     nsl, solar, price, carbon = series
-    pec_x, pec_y, cpc_x, cpc_y = curves
-    cap, nominal = bparams[0], bparams[1]
-    keep = 1.0 - bparams[2]
-    soc_floor = 1.0 - bparams[4]
-    clc = bparams[5]
-    cap_safe = torch.clamp(cap, min=ZERO)
-    nominal_safe = torch.clamp(nominal, min=ZERO)
     soc, eff, deg = soc0, eff0, deg0
     rew = torch.zeros_like(soc0)
     cost = torch.zeros_like(soc0)
     emis = torch.zeros_like(soc0)
     rec = []
     for t in range(actions.shape[0]):
-        energy = actions[t] * nominal * hours_ratio
-        energy_init = torch.clamp(soc * cap * keep, min=0.0)
-        max_power = nominal * _interp(energy_init / cap_safe, cpc_x, cpc_y)
-
-        charging = energy >= 0.0
-        e_chg = torch.minimum(torch.minimum(max_power, nominal.expand_as(max_power)),
-                              torch.minimum(deg - energy_init, energy))
-        eff_chg = _interp(torch.abs(torch.minimum(energy, max_power)) / nominal_safe,
-                          pec_x, pec_y)
-        e_dod = -torch.clamp((soc - soc_floor) * cap * torch.sqrt(eff), min=0.0)
-        e_dis = torch.maximum(torch.maximum(-max_power, e_dod), energy)
-        eff_dis = _interp(torch.minimum(torch.abs(energy), max_power) / nominal_safe,
-                          pec_x, pec_y)
-        e = torch.where(charging, e_chg, e_dis)
-        new_eff = torch.where(charging, eff_chg, eff_dis)
-        rt = torch.sqrt(new_eff)
-        fin = torch.where(e >= 0.0, torch.minimum(energy_init + e * rt, cap.expand_as(e)),
-                          torch.clamp(energy_init + e / rt, min=0.0))
-        new_soc = fin / cap_safe
-        delta = fin - energy_init
-        balance = torch.where(delta >= 0.0, delta / rt, delta * rt)
-        new_deg = torch.clamp(
-            deg - (clc * cap * torch.abs(balance) / (2.0 * torch.clamp(deg, min=ZERO))) * ratio,
-            min=0.0)
-
+        soc, eff, deg, balance = battery_event(bparams, curves, soc, eff, deg, actions[t],
+                                               hours_ratio, ratio)
         # net accounting with the t == 0 triple/double count
         nsl_term = 3.0 * nsl[t] if t == 0 else nsl[t]
         bat_term = 2.0 * balance if t == 0 else balance
         net = nsl_term + bat_term - solar[t]
         if record:
-            rec.append(torch.stack([net[0], balance[0], new_soc[0]]))
+            rec.append(torch.stack([net[0], balance[0], soc[0]]))
         rew = rew - torch.clamp(net, min=0.0)
         cost = cost + net * price[t]
         emis = emis + torch.clamp(net * carbon[t], min=0.0)
-        soc, eff, deg = new_soc, new_eff, new_deg
     out = (rew, cost, emis, soc, eff, deg)
     if record:
         out = out + (torch.stack(rec, dim=1),)
