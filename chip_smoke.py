@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's battery+PV path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them: the
+battery+PV district's evaluation (kernel K1) and training (K2), and the
+thermal-storage district's evaluation (K3).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -26,7 +28,21 @@ Phases, each of which raises on failure:
      just after: 80 training steps on the kernel path, whose updates must
      move the policy; (c) the train step's rate over 3 more 64-step chunks,
      split into collect and updates; (d) ``evaluate`` of the trained policy
-     over 168 steps, and of a scripted baseline through K1.
+     over 168 steps, and of a scripted baseline through K1;
+  9. write a seeded 9-building, 8760-row thermal-storage dataset (cooling
+     and DHW devices and tanks, battery, PV: the shape of
+     ``citylearn_challenge_2021``), compile it and pack it on the card;
+ 10. kernel vs plain: K3 (``thermal_episode``) against its plain PyTorch
+     version on the same tensors at D=4096 districts over the full year,
+     all 8 outputs and the 9 recorded rows, under plans that take both
+     priority orders of both end uses; the plain version's one run is timed;
+ 11. the thermal main path, with the launch counts reset just before and
+     read just after: ``evaluate_scripted`` at D=4096 over the full year
+     and ``evaluate_districts`` with a scripted policy (both K3-backed),
+     then at 168 steps the kernel-backed table against the stepped
+     ``evaluate_districts`` at D=4096;
+ 12. times with CUDA events: K3 per launch and its bound, the full-year
+     ``evaluate_scripted`` and the stepped thermal path per step.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -50,16 +66,23 @@ from citylearn_tpu_torch.core.evaluate import evaluate_districts
 from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import batched_initial_states
-from citylearn_tpu_torch.core.rollout_fast import battery_episode_inputs, eligible
+from citylearn_tpu_torch.core.rollout_fast import (
+    battery_episode_inputs,
+    eligible,
+    eligible_thermal,
+    thermal_episode_inputs,
+)
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as k1
 from citylearn_tpu_torch.ops import collect as k2
-from citylearn_tpu_torch.synthetic import write_battery_pv_dataset
+from citylearn_tpu_torch.ops import thermal as k3
+from citylearn_tpu_torch.synthetic import write_battery_pv_dataset, write_thermal_dataset
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 
 DEVICE = "cuda"
 D = 4096                      # districts per batch
 N_BUILDINGS, N_ROWS, SEED = 5, 8760, 0
+THERMAL_BUILDINGS = 9         # the thermal district (citylearn_challenge_2021 has 9)
 SHORT_STEPS = 168             # the kernel-vs-stepped table comparison
 PEAK_FP32 = 67e12             # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
@@ -71,6 +94,8 @@ TOL_TABLE = 1e-5              # KPI tables: ratios of sums taken in another orde
 OUTPUTS = ("reward", "cost", "emission", "soc", "eff", "deg", "record")
 K_CHUNK = 64                  # K2's chunk: TrainConfig.collect_chunk
 COLLECT_OUTPUTS = ("reward", "soc", "eff", "deg")
+THERMAL_OUTPUTS = ("reward", "cost", "emission", "cooling_soc", "dhw_soc", "soc", "eff",
+                   "deg", "record")
 # the JAX package's sac_train_step bench row (bench.py:286-290)
 TRAIN = dict(n_districts=D, hidden=(256, 256), batch_size=256,
              replay_capacity=D * 64, collect_chunk=K_CHUNK)
@@ -89,6 +114,15 @@ def basic_rbc_table():
     for h in list(range(22, 25)) + list(range(1, 9)):
         table[h - 1] = 0.091
     return table
+
+
+def thermal_rbc_tables():
+    """Hour tables in the manner of BasicRBC: the tanks and the battery
+    charge from 22:00 to 08:00 and discharge through the day."""
+    night = [h >= 22 or h <= 8 for h in range(1, 25)]
+    table = lambda charge, discharge: [charge if n else discharge for n in night]
+    return {"cooling_storage": table(0.091, -0.08), "dhw_storage": table(0.091, -0.08),
+            "electrical_storage": basic_rbc_table()}
 
 
 def nvidia_smi(query="name,power.limit"):
@@ -120,17 +154,157 @@ def time_cuda(fn, n):
     return start.elapsed_time(end) / n
 
 
-def check_table(table, lead, where):
+def check_table(table, lead, where, n_buildings=N_BUILDINGS):
     """Every KPI has shape ``lead`` (+ (B,) for building rows) and is
     finite, except those NaN by the reference's semantics on this data."""
     if len(table) != 37:
         raise AssertionError(f"{where}: {len(table)} KPIs, want 37")
     for k, v in table.items():
-        shape = lead + ((N_BUILDINGS,) if k.startswith("building|") else ())
+        shape = lead + ((n_buildings,) if k.startswith("building|") else ())
         if tuple(v.shape) != shape:
             raise AssertionError(f"{where}: {k} has shape {tuple(v.shape)}, want {shape}")
         if k.split("|")[1] not in NAN_KPIS and not torch.isfinite(v).all():
             raise AssertionError(f"{where}: {k} is not finite: {v}")
+
+
+def table_error(fast, stepped):
+    """Largest error of the kernel-backed KPI table against the stepped
+    one, relative to max(|value|, 1); raises beyond ``TOL_TABLE``."""
+    worst = 0.0
+    for k in fast:
+        a, b = fast[k], stepped[k]
+        if tuple(a.shape) != tuple(b.shape) or not torch.equal(a.isnan(), b.isnan()):
+            raise AssertionError(f"kernel and stepped tables differ in shape or NaN on {k}")
+        finite = ~b.isnan()
+        err = float(((a - b).abs()[finite] / b.abs()[finite].clamp(min=1.0)).max()) \
+            if finite.any() else 0.0
+        worst = max(worst, err)
+        if not err <= TOL_TABLE:
+            raise AssertionError(f"kernel vs stepped table at S={SHORT_STEPS}: {k} {err}")
+    return worst
+
+
+def thermal_path(dev, results):
+    """Phases 9-12: the thermal-storage district through K3. Returns K3's
+    entry of the ``kernels`` line."""
+    phase("9. thermal dataset, compile, pack")
+    B = THERMAL_BUILDINGS
+    with tempfile.TemporaryDirectory() as tmp:
+        schema = write_thermal_dataset(tmp, B, N_ROWS, SEED)
+        cfg, params, _ = pack(compile_schema(schema), device=dev)
+    if not eligible_thermal(cfg):
+        raise AssertionError("the synthetic thermal district is not kernel-eligible")
+    S = cfg.time_steps - 1
+    print(f"{cfg.n_buildings} buildings, {cfg.time_steps} rows, S={S} steps, "
+          f"cooling {cfg.any_cooling}, heating {cfg.any_heating}, dhw {cfg.any_dhw}; DHW "
+          f"heat pumps {int(params.dhw_device.is_heat_pump.sum())} of {B}, DHW tanks "
+          f"{int((params.dhw_storage.capacity > 0).sum())} of {B}")
+    tables = thermal_rbc_tables()
+
+    phase(f"10. K3 vs plain at D={D}, B={B}, S={S}")
+    inputs = thermal_episode_inputs(cfg, params, D, tables)
+    # The reference converts the DHW storage action by the heating tank's
+    # capacity, 0 on a district without heating, so the main path's DHW
+    # tanks never charge. The comparison converts by the DHW tank's own
+    # capacity instead, which takes both priority orders of the DHW block.
+    both_orders = dict(inputs, tparams=inputs["tparams"].clone())
+    both_orders["tparams"][k3.DT_CONV] = both_orders["tparams"][k3.DT_CAP]
+    ours = k3.thermal_episode(**both_orders, record=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = k3.thermal_episode_reference(**both_orders, record=True)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    max_abs = 0.0
+    for name, a, b in zip(THERMAL_OUTPUTS, ours, ref):
+        diff, rel = scaled_error(a, b)
+        max_abs = max(max_abs, diff)
+        tol = TOL_SUM if name in ("reward", "cost", "emission") else TOL_STEP
+        print(f"{name:11s} max|diff| {diff:.3e}  scaled {rel:.3e}  (tolerance {tol:g})")
+        if not rel <= tol:
+            raise AssertionError(f"K3 {name} disagrees with its plain version: {rel}")
+    rec = ours[8]
+    for row, name in ((k3.R_CBAL, "cooling"), (k3.R_DBAL, "dhw"), (k3.R_BBAL, "battery")):
+        if not ((rec[row] > 0).any() and (rec[row] < 0).any()):
+            raise AssertionError(f"the {name} balance never took both signs")
+    if not torch.isfinite(rec).all():
+        raise AssertionError("K3 recorded a non-finite value")
+    unmet = float((inputs["series"][4] - rec[k3.R_COUT] - (-rec[k3.R_CBAL]).clamp(min=0))
+                  .clamp(min=0).sum())
+    print(f"both priority orders of both end uses and both battery branches taken; "
+          f"unmet cooling of district 0 over the year {unmet:.3f} kWh (the undersized "
+          f"heat pump saturates)")
+
+    phase("11. thermal main path")
+    policy = ScriptedPolicy(tables)
+    k3.thermal_episode.launches = 0
+    table = evaluate_scripted(cfg, params, policy, n_districts=D, device=dev)
+    torch.cuda.synchronize()
+    check_table(table, (), "thermal evaluate_scripted", B)
+    states = batched_initial_states(cfg, params, D, device=dev)
+    served = evaluate_districts(cfg, params, states, policy, device=dev)
+    check_table(served, (D,), "thermal evaluate_districts", B)
+    for k, v in served.items():
+        if not torch.equal(v[0].nan_to_num(), table[k].nan_to_num()):
+            raise AssertionError(f"thermal evaluate_districts dispatch differs on {k}")
+    fast = evaluate_districts(cfg, params, states, policy, n_steps=SHORT_STEPS, device=dev)
+    stepped_fn = lambda: evaluate_districts(
+        cfg, params, states, policy.as_policy_fn(cfg, params, SHORT_STEPS),
+        n_steps=SHORT_STEPS, device=dev)
+    stepped = stepped_fn()
+    torch.cuda.synchronize()
+    launches = k3.thermal_episode.launches
+    print(f"K3 launches on the main path: {launches}")
+    if launches == 0:
+        raise AssertionError("the thermal main path never launched K3")
+    worst = table_error(fast, stepped)
+    print(f"kernel vs stepped KPI table at S={SHORT_STEPS}, D={D}: max error {worst:.3e} "
+          f"(tolerance {TOL_TABLE:g})")
+    print("full-year district KPIs:")
+    for k, v in table.items():
+        if k.startswith("district|"):
+            print(f"  {k[9:]:48s} {float(v):.6f}")
+
+    phase("12. thermal times")
+    kernel_ms = time_cuda(lambda: k3.thermal_episode(**both_orders, record=True), 20)
+    main_ms = time_cuda(lambda: k3.thermal_episode(**inputs, record=True), 20)
+    eval_ms = time_cuda(lambda: evaluate_scripted(cfg, params, policy, n_districts=D,
+                                                  device=dev), 5)
+    stepped_ms = time_cuda(stepped_fn, 1)
+    n_knots = inputs["curves"][0].shape[0]
+    n_bytes = 4 * (10 * S * B + 8 * B + 4 * n_knots * B + k3.N_TROWS * B + 5 * D * B
+                   + 8 * D * B + k3.N_TREC * S * B)
+    n_ops = k3.operation_count(inputs["actions"], n_knots, D)
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    power = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    print(f"K3 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s; "
+          f"{main_ms:.4f} ms on the main path's inputs, whose DHW tanks never charge); "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
+          f"({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> {bytes_ms:.5f} ms), "
+          f"share of bound {bound_ms / kernel_ms:.2%}; "
+          f"nvidia-smi sm clock, draw, limit, temp: {power}")
+    print(f"evaluate_scripted full year at D={D}: {eval_ms:.3f} ms; stepped "
+          f"evaluate_districts S={SHORT_STEPS} at D={D}: {stepped_ms:.1f} ms "
+          f"({stepped_ms / SHORT_STEPS:.3f} ms per step)")
+    results.update(
+        k3_ms=kernel_ms, k3_main_inputs_ms=main_ms, k3_plain_ms=plain_ms,
+        k3_bound_ms=bound_ms, k3_bound_ops=n_ops, k3_bound_bytes=n_bytes,
+        k3_max_abs_err=max_abs, k3_launches=launches, k3_table_error=worst,
+        k3_district_steps_per_s=D * S / kernel_ms * 1e3,
+        thermal_evaluate_scripted_ms=eval_ms, thermal_stepped_168_ms=stepped_ms,
+        thermal_district_kpis={k: float(v) for k, v in table.items()
+                               if k.startswith("district|")}, thermal_smi_after=power)
+    return {
+        "name": "thermal_episode", "route": "cuda",
+        "source": "citylearn_tpu_torch/csrc/thermal_episode.cu",
+        "replaces": "citylearn_tpu/ops/pallas_thermal.py:335",
+        "launches": launches, "max_abs_err": max_abs, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None}
 
 
 def main(json_path=None):
@@ -207,17 +381,7 @@ def main(json_path=None):
     print(f"K1 launches on the main path: {launches}")
     if launches == 0:
         raise AssertionError("the main path never launched K1")
-    worst = 0.0
-    for k in fast:
-        a, b = fast[k], stepped[k]
-        if tuple(a.shape) != tuple(b.shape) or not torch.equal(a.isnan(), b.isnan()):
-            raise AssertionError(f"kernel and stepped tables differ in shape or NaN on {k}")
-        finite = ~b.isnan()
-        err = float(((a - b).abs()[finite] / b.abs()[finite].clamp(min=1.0)).max()) \
-            if finite.any() else 0.0
-        worst = max(worst, err)
-        if not err <= TOL_TABLE:
-            raise AssertionError(f"kernel vs stepped table at S={SHORT_STEPS}: {k} {err}")
+    worst = table_error(fast, stepped)
     print(f"kernel vs stepped KPI table at S={SHORT_STEPS}, D={D}: max error {worst:.3e} "
           f"(tolerance {TOL_TABLE:g})")
     print("full-year district KPIs:")
@@ -390,6 +554,8 @@ def main(json_path=None):
           f"baseline through K1 ({k1.battery_episode.launches} launch), cost_total "
           f"{float(baseline['district|cost_total'][0]):.6f}")
 
+    thermal_kernel = thermal_path(dev, results)
+
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",
         "source": "citylearn_tpu_torch/csrc/battery_episode.cu",
@@ -404,7 +570,7 @@ def main(json_path=None):
         "launches": k2_launches, "max_abs_err": k2_max_abs, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
-        "library_ms": None}]}
+        "library_ms": None}, thermal_kernel]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if json_path:

@@ -1,11 +1,14 @@
 """citylearn_tpu_torch: the PyTorch/CUDA port of ``citylearn_tpu``.
 
-The battery+PV district path runs end to end: compile a schema
-(``compiler``), pack it into tensors (``core.params``), step and roll
-out batches of districts (``core.step``, ``core.rollout``), score them
-with the normalized KPI table (``core.evaluate``), and run whole
-open-loop episodes as one hand-written CUDA kernel launch
-(``ops.battery``, ``core.rollout_fast``, ``core.evaluate_fast``).
+Two district families run end to end, battery+PV (the shape of
+``citylearn_challenge_2022_phase_1``) and thermal storage (cooling,
+heating and DHW devices and tanks plus battery and PV, the shape of
+``citylearn_challenge_2021``): compile a schema (``compiler``), pack it
+into tensors (``core.params``), step and roll out batches of districts
+(``core.step``, ``core.rollout``), score them with the normalized KPI
+table (``core.evaluate``), and run whole open-loop episodes as one
+hand-written CUDA kernel launch (``ops.battery``, ``ops.thermal``,
+``core.rollout_fast``, ``core.evaluate_fast``).
 
 The training path runs too: ``train.BatchedSAC`` trains per-building SAC
 agents (``agents.sac``, networks stacked over the agent axis) on
@@ -37,6 +40,7 @@ _EXPORTS = {
     "hour_rbc_policy": "citylearn_tpu_torch.core.rollout",
     "evaluate_districts": "citylearn_tpu_torch.core.evaluate",
     "run_battery_episode": "citylearn_tpu_torch.core.rollout_fast",
+    "run_thermal_episode": "citylearn_tpu_torch.core.rollout_fast",
     "ScriptedPolicy": "citylearn_tpu_torch.core.evaluate_fast",
     "evaluate_scripted": "citylearn_tpu_torch.core.evaluate_fast",
     "BatchedSAC": "citylearn_tpu_torch.train",

@@ -1,9 +1,10 @@
 """Schema compiler: ``schema.json`` + CSVs -> :class:`DistrictSpec`.
 
-The counterpart of ``citylearn_tpu.compiler.schema`` for the battery+PV
-district: the same device resolution, series defaults, noise stream and
-observation/action surface, with CSVs read by the standard ``csv``
-module instead of pandas. Schema blocks outside that district raise
+The counterpart of ``citylearn_tpu.compiler.schema`` for the districts
+the port carries (battery+PV and thermal storage): the same device
+resolution, series defaults, noise stream and observation/action
+surface, with CSVs read by the standard ``csv`` module instead of
+pandas. Schema blocks outside those districts raise
 ``NotImplementedError`` naming the block: LSTM dynamics, electric
 vehicles and chargers, charging constraints, washing machines,
 occupants, autosizing and stochastic power outages. Missing HVAC devices
@@ -141,7 +142,7 @@ def _unsupported(block: str, building: str = None):
     where = f" (building {building})" if building else ""
     raise NotImplementedError(
         f"schema block '{block}'{where} is not supported by the PyTorch "
-        "port's battery+PV district yet")
+        "port yet")
 
 
 def _resolve_hvac(block: Optional[dict], seed: Optional[int]) -> HVACDeviceSpec:

@@ -68,7 +68,8 @@ def collect_episode(cfg: StaticConfig, params: DistrictParams,
             net=out.net_electricity_consumption,
             cost=out.net_electricity_consumption_cost,
             emission=out.net_electricity_consumption_emission,
-            storage=out.battery_consumption,
+            storage=(out.cooling_storage_consumption + out.heating_storage_consumption
+                     + out.dhw_storage_consumption + out.battery_consumption),
             solar=out.solar_generation,             # negative kWh
             pricing=params.series.electricity_pricing[tau],
             carbon=params.series.carbon_intensity[tau],
@@ -78,8 +79,12 @@ def collect_episode(cfg: StaticConfig, params: DistrictParams,
             cooling_demand_actual=out.cooling_demand_actual,
             heating_demand_actual=out.heating_demand_actual,
             # served = met demand + storage discharge per end use + met
-            # non-shiftable load; only the last exists in this district
-            served=out.non_shiftable_load_met,
+            # non-shiftable load
+            served=(out.cooling_demand_met + torch.clamp(-out.cooling_storage_balance, min=0.0)
+                    + out.heating_demand_met
+                    + torch.clamp(-out.heating_storage_balance, min=0.0)
+                    + out.dhw_demand_met + torch.clamp(-out.dhw_storage_balance, min=0.0)
+                    + out.non_shiftable_load_met),
         )
         for k, v in step.items():
             ys.setdefault(k, []).append(v)

@@ -1,14 +1,16 @@
 """Kernel-backed evaluation: the user-facing KPI table served by the
-whole-episode battery kernel.
+whole-episode kernels.
 
 The reference's ``evaluate()`` (``citylearn.py:1136-1323``) consumes the
-per-step series the env accumulated while stepping. For a battery+PV
-district under an *open-loop* policy (hour-indexed RBC tables or
-per-building per-step plans), the episode runs as ONE kernel launch
-recording district 0's (net, battery balance, SOC) per step; every other
-KPI input is data-driven, so the recorded streams rebuild the exact
-``collected`` dict of :func:`citylearn_tpu_torch.core.evaluate.collect_episode`
-and :func:`citylearn_tpu_torch.core.evaluate.kpi_table` runs unchanged.
+per-step series the env accumulated while stepping. For a kernel-eligible
+district (battery+PV, the 2022 family; cooling and DHW storage plus
+battery, the 2021 family) under an *open-loop* policy (hour-indexed RBC
+tables or per-building per-step plans), the episode runs as ONE kernel
+launch recording district 0's per-step series (net, balances, SOCs,
+device outputs); every other KPI input is data-driven, so the recorded
+streams rebuild the exact ``collected`` dict of
+:func:`citylearn_tpu_torch.core.evaluate.collect_episode` and
+:func:`citylearn_tpu_torch.core.evaluate.kpi_table` runs unchanged.
 
 :func:`citylearn_tpu_torch.core.evaluate.evaluate_districts` routes here
 when handed a :class:`ScriptedPolicy` on an eligible configuration.
@@ -23,10 +25,11 @@ import numpy as np
 import torch
 
 from citylearn_tpu_torch import resolve_device
-from citylearn_tpu_torch.core import rollout_fast
+from citylearn_tpu_torch.core import hvac, rollout_fast
 from citylearn_tpu_torch.core.evaluate import kpi_table, window
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS
 from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
+from citylearn_tpu_torch.ops.thermal import R_BBAL, R_CBAL, R_COUT, R_DBAL, R_DOUT, R_NET
 
 
 class ScriptedPolicy:
@@ -120,7 +123,11 @@ class ScriptedPolicy:
 
 def kernel_family(cfg: StaticConfig) -> Optional[str]:
     """Which whole-episode kernel serves this configuration, if any."""
-    return "battery" if rollout_fast.eligible(cfg) else None
+    if rollout_fast.eligible(cfg):
+        return "battery"
+    if rollout_fast.eligible_thermal(cfg):
+        return "thermal"
+    return None
 
 
 def _with_t0_double(bal: torch.Tensor) -> torch.Tensor:
@@ -129,22 +136,36 @@ def _with_t0_double(bal: torch.Tensor) -> torch.Tensor:
     return torch.cat([bal[:1] * 2.0, bal[1:]], dim=0)
 
 
-def _assemble(cfg: StaticConfig, params: DistrictParams, rec: torch.Tensor,
+def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch.Tensor,
               off: int, baseline_condition: str) -> Dict[str, torch.Tensor]:
-    """KPI dict for one district from the kernel's recorded (3, S, B)
+    """KPI dict for one district from the kernel's recorded (rows, S, B)
     stream and the data series of the episode window ``[off, off + S)``."""
     S = rec.shape[1]
     ser = params.series
     start = torch.tensor([off], device=rec.device)
     w = lambda arr: window(arr, start, S)                    # (S, 1, B)
-    net = rec[0][:, None]
+    if family == "battery":
+        net, storage = rec[0], _with_t0_double(rec[1])
+        served = w(ser.non_shiftable_load)
+    else:
+        net = rec[R_NET]
+        # storage consumption: device input power of each tank balance
+        # (building.py:414-464) plus the battery's
+        outdoor = w(ser.outdoor_dry_bulb_temperature)[:, 0]
+        storage = (hvac.input_power(params.cooling_device, rec[R_CBAL], outdoor, False)
+                   + hvac.input_power(params.dhw_device, rec[R_DBAL], outdoor, True)
+                   + _with_t0_double(rec[R_BBAL]))
+        served = (rec[R_COUT] + torch.clamp(-rec[R_CBAL], min=0.0)
+                  + rec[R_DOUT] + torch.clamp(-rec[R_DBAL], min=0.0))[:, None] \
+            + w(ser.non_shiftable_load)
+    net = net[:, None]
     pricing = w(ser.electricity_pricing)
     carbon = w(ser.carbon_intensity)
     collected = dict(
         net=net,
         cost=net * pricing,
         emission=torch.clamp(net * carbon, min=0.0),
-        storage=_with_t0_double(rec[1])[:, None],
+        storage=storage[:, None],
         solar=-w(ser.solar_generation),
         pricing=pricing,
         carbon=carbon,
@@ -153,7 +174,7 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, rec: torch.Tensor,
         heating_sp=w(ser.indoor_dry_bulb_temperature_heating_set_point),
         cooling_demand_actual=w(ser.cooling_demand),
         heating_demand_actual=w(ser.heating_demand),
-        served=w(ser.non_shiftable_load),
+        served=served,
     )
     table = kpi_table(cfg, params, collected, start, baseline_condition)
     return {k: v[0] for k, v in table.items()}
@@ -165,20 +186,22 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
                       n_districts: int = None, return_series: bool = False,
                       data_offset: int = 0, device=None):
     """Full normalized KPI table for ONE district under an open-loop
-    policy, computed on the whole-episode battery kernel on ``device``
-    (the CUDA card by default).
+    policy, computed on the whole-episode kernel of the configuration's
+    family on ``device`` (the CUDA card by default).
 
     Requires a kernel-eligible configuration (``kernel_family(cfg)``).
     Returns the same ``building|<kpi>`` -> (B,) / ``district|<kpi>`` ->
     scalar dict as :func:`citylearn_tpu_torch.core.evaluate.kpi_table`;
-    with ``return_series=True`` also the raw recorded (3, S, B) stream.
+    with ``return_series=True`` also the raw recorded (rows, S, B) stream
+    (see the kernel modules' row constants).
     ``n_districts`` identical districts run in the launch (1 by
     default); the table is district 0's.
 
     ``data_offset`` evaluates a shifted episode window [off, off + S) —
     the reference's rolling/random splits (``base.py:76-129``): input
     series, hour tables and the KPI window all follow the offset."""
-    if kernel_family(cfg) is None:
+    family = kernel_family(cfg)
+    if family is None:
         raise ValueError("configuration is not kernel-eligible; use "
                          "evaluate_districts (stepped path) instead")
     dev = resolve_device(device)
@@ -186,12 +209,17 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
     off = int(data_offset)
     S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
     plans = policy.expanded(cfg, params, S, data_offset=off)
-    out = rollout_fast.run_battery_episode(
-        cfg, params, n_districts or 1,
-        plans.get("electrical_storage", np.zeros((S, cfg.n_buildings), np.float32)),
-        n_steps=S, record_series=True, data_offset=off, device=dev)
+    if family == "battery":
+        out = rollout_fast.run_battery_episode(
+            cfg, params, n_districts or 1,
+            plans.get("electrical_storage", np.zeros((S, cfg.n_buildings), np.float32)),
+            n_steps=S, record_series=True, data_offset=off, device=dev)
+    else:
+        out = rollout_fast.run_thermal_episode(
+            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
+            data_offset=off, device=dev)
     rec = out[-1]
-    table = _assemble(cfg, params, rec, off, baseline_condition)
+    table = _assemble(cfg, params, family, rec, off, baseline_condition)
     if return_series:
         return table, rec
     return table

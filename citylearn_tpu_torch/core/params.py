@@ -3,14 +3,15 @@
 Data layout is time-major ``(T, B)`` so each step gathers one contiguous
 ``(B,)`` row per field (replaces the reference's per-step
 ``TimeSeriesData.__getattr__`` slicing, ``data.py:313``). The packed
-leaves equal those of ``citylearn_tpu.core.params.pack`` for the
-battery+PV district.
+leaves equal those of the JAX package's ``pack`` for the battery+PV and
+thermal-storage districts (its float64-parity provenance flags are not
+carried).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, get_type_hints
 
 import numpy as np
 import torch
@@ -22,8 +23,10 @@ from citylearn_tpu_torch.core.types import (
     BatteryParams,
     DistrictParams,
     EnvState,
+    HVACParams,
     SeriesData,
     StaticConfig,
+    StorageTankParams,
 )
 
 
@@ -183,8 +186,8 @@ def _reward_config(spec: DistrictSpec) -> Dict:
 
 def pack(spec: DistrictSpec, device=None
          ) -> Tuple[StaticConfig, DistrictParams, ObsLayout]:
-    """``(cfg, params, layout)`` of a compiled battery+PV district, with
-    every parameter tensor on ``device`` (the CUDA card by default)."""
+    """``(cfg, params, layout)`` of a compiled district, with every
+    parameter tensor on ``device`` (the CUDA card by default)."""
     dev = resolve_device(device)
     sl = slice(spec.simulation_start_time_step, spec.simulation_end_time_step + 1)
 
@@ -216,9 +219,14 @@ def pack(spec: DistrictSpec, device=None
         comfort_band=t(_stack(spec, "comfort_band")),
         occupant_count=t(_stack(spec, "occupant_count")),
     )
-    f32 = lambda get: t(np.asarray([get(b.battery) for b in spec.buildings], np.float32))
-    battery = BatteryParams(**{f.name: f32(lambda bat, n=f.name: getattr(bat, n))
-                               for f in dataclasses.fields(BatteryParams)})
+
+    def block(cls, attr):
+        """Stack one device's resolved attributes over the buildings."""
+        vals = {f.name: np.asarray([getattr(getattr(b, attr), f.name) for b in spec.buildings])
+                for f in dataclasses.fields(cls)}
+        return cls(**{k: t(v if v.dtype == bool else v.astype(np.float32))
+                      for k, v in vals.items()})
+
 
     cfg = StaticConfig(
         n_buildings=spec.n_buildings,
@@ -236,28 +244,31 @@ def pack(spec: DistrictSpec, device=None
         **_reward_config(spec),
     )
     layout = build_obs_layout(spec)
-    params = DistrictParams(series=series, battery=battery,
-                            obs_static=t(_obs_static(spec, layout)))
+    params = DistrictParams(
+        series=series, battery=block(BatteryParams, "battery"),
+        **{name: block(HVACParams, name)
+           for name in ("cooling_device", "heating_device", "dhw_device")},
+        **{name: block(StorageTankParams, name)
+           for name in ("cooling_storage", "heating_storage", "dhw_storage")},
+        obs_static=t(_obs_static(spec, layout)))
     return cfg, params, layout
 
 
 def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> DistrictParams:
     """:class:`DistrictParams` from a flat ``{"series.hour": array, ...}``
     dict keyed by field path — the JAX package's packed parameters
-    carried across as numpy arrays. Keys of blocks the battery+PV
-    district does not read (HVAC devices, tanks) are ignored; a missing
-    key raises ``KeyError``."""
+    carried across as numpy arrays. Keys the port does not read (the
+    float64-parity provenance flags) are ignored; a missing key raises
+    ``KeyError``."""
     dev = resolve_device(device)
 
-    def build(cls, prefix):
-        return cls(**{f.name: torch.tensor(np.asarray(tree[f"{prefix}.{f.name}"]),
-                                           device=dev)
-                      for f in dataclasses.fields(cls)})
+    def build(cls, prefix=""):
+        return cls(**{
+            name: (build(kind, f"{prefix}{name}.") if dataclasses.is_dataclass(kind)
+                   else torch.tensor(np.asarray(tree[f"{prefix}{name}"]), device=dev))
+            for name, kind in get_type_hints(cls).items()})
 
-    return DistrictParams(series=build(SeriesData, "series"),
-                          battery=build(BatteryParams, "battery"),
-                          obs_static=torch.tensor(np.asarray(tree["obs_static"]),
-                                                  device=dev))
+    return build(DistrictParams)
 
 
 def initial_state(cfg: StaticConfig, params: DistrictParams,
@@ -273,4 +284,7 @@ def initial_state(cfg: StaticConfig, params: DistrictParams,
         battery_soc=params.battery.initial_soc.clone(),
         battery_efficiency=params.battery.efficiency.clone(),
         battery_degraded_capacity=params.battery.capacity.clone(),
+        cooling_storage_soc=params.cooling_storage.initial_soc.clone(),
+        heating_storage_soc=params.heating_storage.initial_soc.clone(),
+        dhw_storage_soc=params.dhw_storage.initial_soc.clone(),
     )

@@ -5,7 +5,7 @@ i.e. from the just-written index-t values — ``citylearn.py:1022-1023``).
 
 Inputs are ``(D, B)`` tensors: district-level terms reduce over the last
 (building) axis. ComfortReward, SolarPenaltyAndComfortReward and the EV
-reward need the thermal and EV blocks and raise here.
+reward need the dynamics and EV blocks and raise here.
 """
 
 from __future__ import annotations
@@ -26,7 +26,13 @@ class RewardInputs(NamedTuple):
     net: torch.Tensor
     solar: torch.Tensor                   # abs PV generation
     battery_soc: torch.Tensor
+    cooling_storage_soc: torch.Tensor
+    heating_storage_soc: torch.Tensor
+    dhw_storage_soc: torch.Tensor
     battery_capacity: torch.Tensor        # (B,)
+    cooling_storage_capacity: torch.Tensor
+    heating_storage_capacity: torch.Tensor
+    dhw_storage_capacity: torch.Tensor
 
 
 def _default(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
@@ -51,12 +57,14 @@ def _marl(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
 
 def _solar_penalty(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
     """Per storage system: ``-(1 + sign(net)*soc) * |net|`` when the system
-    has capacity (reward_function.py:170-214). The district has no thermal
-    tanks, so the battery is the only storage system with capacity."""
+    has capacity (reward_function.py:170-214)."""
     e = x.net
-    return torch.where(x.battery_capacity > ZERO,
-                       -(1.0 + torch.sign(e) * x.battery_soc) * torch.abs(e),
-                       torch.zeros_like(e))
+    term = lambda soc, cap: torch.where(
+        cap > ZERO, -(1.0 + torch.sign(e) * soc) * torch.abs(e), torch.zeros_like(e))
+    return (term(x.cooling_storage_soc, x.cooling_storage_capacity)
+            + term(x.heating_storage_soc, x.heating_storage_capacity)
+            + term(x.dhw_storage_soc, x.dhw_storage_capacity)
+            + term(x.battery_soc, x.battery_capacity))
 
 
 def _marl_single(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Tensor containers for the battery+PV district engine.
+"""Tensor containers for the district engine.
 
 Dataclasses of tensors take the place of the JAX package's flax
 ``PyTreeNode``s, with the same field names. Parameters carry a building
@@ -57,6 +57,32 @@ class BatteryParams:
 
 
 @dataclasses.dataclass
+class HVACParams:
+    """Heat pump / electric heater per building, ``(B,)`` each.
+
+    ``is_heat_pump`` selects between Carnot-COP heat-pump math and
+    constant-efficiency heater math (reference ``energy_model.py:157-451``).
+    """
+    is_heat_pump: torch.Tensor            # bool (B,)
+    nominal_power: torch.Tensor
+    efficiency: torch.Tensor
+    target_cooling_temperature: torch.Tensor
+    target_heating_temperature: torch.Tensor
+
+
+@dataclasses.dataclass
+class StorageTankParams:
+    """Thermal storage tank per building, ``(B,)`` float32 each (reference
+    ``energy_model.py:603-871``)."""
+    capacity: torch.Tensor
+    efficiency: torch.Tensor
+    loss_coefficient: torch.Tensor
+    initial_soc: torch.Tensor
+    max_input_power: torch.Tensor         # +inf when unconstrained
+    max_output_power: torch.Tensor
+
+
+@dataclasses.dataclass
 class SeriesData:
     """Input time series, each ``(T, B)`` float32 over the simulation range.
 
@@ -82,9 +108,15 @@ class SeriesData:
 
 @dataclasses.dataclass
 class DistrictParams:
-    """Everything the battery+PV step and the trainer read, on one device."""
+    """Everything the district step and the trainer read, on one device."""
     series: SeriesData
     battery: BatteryParams
+    cooling_device: HVACParams
+    heating_device: HVACParams
+    dhw_device: HVACParams
+    cooling_storage: StorageTankParams
+    heating_storage: StorageTankParams
+    dhw_storage: StorageTankParams
     # (T, B, K_union) data-driven observation values: the observation
     # returned at sim-range row tau is obs_static[tau] (state-derived
     # columns read zero there; see core/params.DERIVED_ZERO_OBSERVATIONS)
@@ -157,6 +189,9 @@ class EnvState:
     battery_soc: torch.Tensor             # soc[t-1] (raw, pre standby loss)
     battery_efficiency: torch.Tensor      # last applied efficiency (history[-1])
     battery_degraded_capacity: torch.Tensor
+    cooling_storage_soc: torch.Tensor
+    heating_storage_soc: torch.Tensor
+    dhw_storage_soc: torch.Tensor
 
     def to(self, device) -> "EnvState":
         return map_tensors(lambda x: x.to(device), self)
@@ -170,13 +205,30 @@ class StepOutput:
     net_electricity_consumption_cost: torch.Tensor
     net_electricity_consumption_emission: torch.Tensor
     reward: torch.Tensor
+    # storage/device detail needed for counterfactual KPI baselines
+    cooling_consumption: torch.Tensor
+    heating_consumption: torch.Tensor
+    dhw_consumption: torch.Tensor
     non_shiftable_consumption: torch.Tensor
     battery_consumption: torch.Tensor
+    cooling_storage_consumption: torch.Tensor  # device input power of tank balance
+    heating_storage_consumption: torch.Tensor
+    dhw_storage_consumption: torch.Tensor
     solar_generation: torch.Tensor             # negative kWh
     battery_soc: torch.Tensor
-    battery_balance: torch.Tensor
+    cooling_storage_soc: torch.Tensor
+    heating_storage_soc: torch.Tensor
+    dhw_storage_soc: torch.Tensor
+    cooling_demand_met: torch.Tensor           # energy_from_cooling_device
+    heating_demand_met: torch.Tensor
+    dhw_demand_met: torch.Tensor
     non_shiftable_load_met: torch.Tensor
-    # controlled demand series equal the data series on this district
+    cooling_storage_balance: torch.Tensor
+    heating_storage_balance: torch.Tensor
+    dhw_storage_balance: torch.Tensor
+    battery_balance: torch.Tensor
+    # controlled demand series: equal to the data series without
+    # partial-load (dynamics) buildings, which the port does not carry yet
     cooling_demand_actual: torch.Tensor
     heating_demand_actual: torch.Tensor
     indoor_temperature: torch.Tensor

@@ -1,0 +1,245 @@
+"""K3: whole-episode rollout of a thermal-storage district batch.
+
+:func:`thermal_episode` replaces ``citylearn_tpu/ops/pallas_thermal.py::
+thermal_episode``: cooling and DHW end uses (heat pump or electric
+heater plus a storage tank each), the battery and PV, under three shared
+open-loop plans — the full no-outage district step fused over the
+episode. On CUDA tensors it launches the hand-written kernel
+``csrc/thermal_episode.cu``: one thread per (district, building) runs all
+S steps with its five carried states and three sums in registers. Like
+K1 the kernel is bound by the latency of each step's dependent chain
+(two COPs, two tank events, the battery event), not by bytes nor by fp32
+throughput. On CPU tensors the wrapper runs
+:func:`thermal_episode_reference`, the plain PyTorch version of the same
+function, which the tests and ``chip_smoke.py`` hold the kernel against.
+
+Layout at the public function follows the JAX kernel's, minus its TPU
+padding: plans and series are (S, B), ``bparams`` (8, B), curves
+knot-major (n_knots, B), ``tparams`` (N_TROWS, B), state (D, B); any
+D >= 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+from citylearn_tpu_torch.ops import _build
+from citylearn_tpu_torch.ops import battery as _battery
+from citylearn_tpu_torch.ops.battery import MAX_KNOTS, ZERO, battery_event
+
+# thermal parameter rows (core/rollout_fast.thermal_episode_inputs packs
+# them; csrc/thermal_common.cuh's Row)
+(CN, CE, CTC, CHP,              # cooling device: nominal power, efficiency, target, is heat pump
+ DN, DE, DTH, DHP,              # dhw device
+ CT_CAP, CT_RT, CT_LOSS, CT_MI, CT_MO, CT_CONV,   # cooling tank
+ DT_CAP, DT_RT, DT_LOSS, DT_MI, DT_MO, DT_CONV,   # dhw tank
+ N_TROWS) = range(21)
+
+# recorded per-step series rows (record=True)
+(R_NET, R_CBAL, R_DBAL, R_BBAL, R_CSOC, R_DSOC, R_BSOC, R_COUT, R_DOUT,
+ N_TREC) = range(10)
+
+
+def operation_count(actions: Sequence[torch.Tensor], n_knots: int, n_districts: int) -> int:
+    """fp32 operations (add, sub, mul, div, sqrt, min, max, abs, negate,
+    compare) the kernel executes for these plans. Per building-step: the
+    battery event, the sums and K1's two net operations
+    (:func:`ops.battery.operation_count`), plus 14 for the two COPs, 4 for
+    the reset-time consumptions, 17 more for the thermal accounting, and
+    per end use 30 when its tank charges or idles (action >= 0) or 32 when
+    it discharges."""
+    a_cool, a_dhw, a_bat = actions
+    discharging = int((a_cool < 0).sum()) + int((a_dhw < 0).sum())
+    thermal = a_bat.numel() * (14 + 4 + 17 + 2 * 30) + 2 * discharging
+    return _battery.operation_count(a_bat, n_knots, n_districts) + n_districts * thermal
+
+
+def _cop(tparams: torch.Tensor, dev_off: int, outdoor: torch.Tensor,
+         heating: bool) -> torch.Tensor:
+    """Carnot COP for heat pumps, constant efficiency for heaters
+    (``energy_model.py:216-250``; the is-heat-pump row selects)."""
+    eff = tparams[dev_off + 1]
+    target = tparams[dev_off + 2]
+    denom = target - outdoor if heating else outdoor - target
+    cop = eff * (target + 273.15) / denom
+    twenty = torch.full_like(cop, 20.0)
+    cop = torch.where(cop < 0, twenty, cop)
+    cop = torch.where(cop > 20, twenty, cop)
+    cop = torch.where(torch.isnan(cop), twenty, cop)
+    return torch.where(tparams[dev_off + 3] > 0.5, cop, eff)
+
+
+def _tank(tparams: torch.Tensor, off: int, soc: torch.Tensor, energy: torch.Tensor,
+          ratio: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """StorageTank charge event (``energy_model.py:603-871`` with the env's
+    pre-divide). Returns (soc', balance)."""
+    cap, rt, loss, max_in, max_out = (tparams[off + k] for k in range(5))
+    e = torch.where(energy >= 0.0, torch.minimum(energy, max_in),
+                    torch.maximum(-max_out, energy))
+    e = e * ratio
+    energy_init = torch.clamp(soc * cap * (1.0 - loss), min=0.0)
+    final = torch.where(e >= 0.0,
+                        torch.minimum(energy_init + e * rt, cap),
+                        torch.clamp(energy_init + e / rt, min=0.0))
+    new_soc = final / torch.clamp(cap, min=ZERO)
+    delta = final - energy_init
+    balance = torch.where(delta >= 0.0, delta / rt, delta * rt)
+    return new_soc, balance
+
+
+def _thermal_block(tparams: torch.Tensor, dev_off: int, tank_off: int, conv_row: int,
+                   soc: torch.Tensor, demand: torch.Tensor, action: torch.Tensor,
+                   cop: torch.Tensor, dev_init: torch.Tensor, hours_mul: float,
+                   ratio: float) -> Tuple[torch.Tensor, ...]:
+    """One end use, both priority orders, selected by the action's sign
+    (the stepped ``core/step._thermal_block`` with +inf electrical
+    flexibility). Returns (soc', balance, device_output, apply_consumption)."""
+    nominal = tparams[dev_off]
+    energy_req = action * tparams[conv_row] * hours_mul
+    max_out = lambda booked: (nominal - booked) * cop
+
+    # variant A: device first, then storage charge
+    out_A = torch.minimum(demand, max_out(dev_init))
+    cons_dev_A = torch.clamp(out_A / cop, min=0.0)
+    charge_A = torch.minimum(max_out(dev_init + cons_dev_A), energy_req)
+    soc_A, bal_A = _tank(tparams, tank_off, soc, charge_A / ratio, ratio)
+    cons_store_A = torch.clamp(bal_A, min=0.0) / cop
+
+    # variant B: storage discharge first, then device
+    discharge_B = torch.maximum(-demand, energy_req)
+    soc_B, bal_B = _tank(tparams, tank_off, soc, discharge_B / ratio, ratio)
+    cons_store_B = torch.clamp(bal_B, min=0.0) / cop     # 0 for a true discharge
+    storage_out_B = -torch.clamp(bal_B, max=0.0)
+    out_B = torch.minimum(demand - storage_out_B, max_out(dev_init + cons_store_B))
+    cons_dev_B = torch.clamp(out_B / cop, min=0.0)
+
+    pick = lambda a, b: torch.where(action < 0.0, b, a)
+    return (pick(soc_A, soc_B), pick(bal_A, bal_B),
+            pick(out_A, out_B).expand_as(soc),
+            pick(cons_dev_A + cons_store_A, cons_dev_B + cons_store_B))
+
+
+def thermal_episode_reference(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
+                              bparams: torch.Tensor, curves: Sequence[torch.Tensor],
+                              tparams: torch.Tensor, csoc0: torch.Tensor,
+                              dsoc0: torch.Tensor, soc0: torch.Tensor, eff0: torch.Tensor,
+                              deg0: torch.Tensor, hours_ratio: float, ratio: float,
+                              record: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`thermal_episode`: a loop over the S
+    steps on (D, B) tensors, rounding every operation as the kernel does."""
+    a_cool, a_dhw, a_bat = actions
+    nsl, solar, price, carbon, cool_demand, dhw_demand, outdoor = series
+    csoc, dsoc, soc, eff, deg = csoc0, dsoc0, soc0, eff0, deg0
+    rew = torch.zeros_like(soc0)
+    cost = torch.zeros_like(soc0)
+    emis = torch.zeros_like(soc0)
+    rec = []
+    for t in range(a_bat.shape[0]):
+        t0f = 1.0 if t == 0 else 0.0
+        cop_c = _cop(tparams, CN, outdoor[t], False)
+        cop_d = _cop(tparams, DN, outdoor[t], True)
+        # reset-time update_variables consumptions, booked at t == 0
+        reset_cool = cool_demand[t] / cop_c
+        reset_dhw = dhw_demand[t] / cop_d
+
+        # cooling takes no hours ratio, DHW does
+        csoc, cbal, cout, ccons = _thermal_block(
+            tparams, CN, CT_CAP, CT_CONV, csoc, cool_demand[t], a_cool[t], cop_c,
+            t0f * reset_cool, 1.0, ratio)
+        dsoc, dbal, dout, dcons = _thermal_block(
+            tparams, DN, DT_CAP, DT_CONV, dsoc, dhw_demand[t], a_dhw[t], cop_d,
+            t0f * reset_dhw, hours_ratio, ratio)
+        soc, eff, deg, balance = battery_event(bparams, curves, soc, eff, deg, a_bat[t],
+                                               hours_ratio, ratio)
+
+        # update_variables accounting with the t == 0 multi-count
+        uv_cool = (cout + cbal) / cop_c
+        uv_dhw = (dout + dbal) / cop_d
+        cool_total = ccons + t0f * (reset_cool + uv_cool)
+        dhw_total = dcons + t0f * (reset_dhw + uv_dhw)
+        nsl_term = nsl[t] + t0f * 2.0 * nsl[t]
+        bat_term = balance + t0f * balance
+        net = cool_total + dhw_total + nsl_term + bat_term - solar[t]
+        if record:
+            rec.append(torch.stack([net[0], cbal[0], dbal[0], balance[0], csoc[0], dsoc[0],
+                                    soc[0], cout[0], dout[0]]))
+        rew = rew - torch.clamp(net, min=0.0)
+        cost = cost + net * price[t]
+        emis = emis + torch.clamp(net * carbon[t], min=0.0)
+    out = (rew, cost, emis, csoc, dsoc, soc, eff, deg)
+    if record:
+        out = out + (torch.stack(rec, dim=1),)
+    return out
+
+
+_PTR = ctypes.c_void_p
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load("thermal_episode").thermal_episode_launch
+    fn.argtypes = [_PTR] * 30 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [_PTR]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def thermal_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
+                    bparams: torch.Tensor, curves: Sequence[torch.Tensor],
+                    tparams: torch.Tensor, csoc0: torch.Tensor, dsoc0: torch.Tensor,
+                    soc0: torch.Tensor, eff0: torch.Tensor, deg0: torch.Tensor,
+                    hours_ratio: float, ratio: float,
+                    record: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Run a full S-step episode for a (D, B) thermal district batch.
+
+    ``actions``: (cooling_storage, dhw_storage, electrical_storage) open-loop
+    plans, each (S, B), shared by the districts; ``series``: (nsl, solar,
+    price, carbon, cooling_demand, dhw_demand, outdoor temperature), each
+    (S, B) float32; ``bparams`` and ``curves`` as
+    :func:`ops.battery.battery_episode` takes them; ``tparams``:
+    (N_TROWS, B) rows named by this module's constants; state ``csoc0``,
+    ``dsoc0``, ``soc0``, ``eff0``, ``deg0``: (D, B). Returns (reward_sum,
+    cost_sum, emission_sum, cooling_soc, dhw_soc, battery_soc, battery_eff,
+    battery_degraded) each (D, B) and, with ``record=True``, an
+    (N_TREC, S, B) per-step stream of district 0's (net, cooling, dhw and
+    battery balances, the three SOCs, cooling and dhw device outputs).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel,
+    and anything else raises.
+    """
+    if soc0.device.type == "cpu":
+        return thermal_episode_reference(actions, series, bparams, curves, tparams, csoc0,
+                                         dsoc0, soc0, eff0, deg0, hours_ratio, ratio, record)
+    if soc0.device.type != "cuda":
+        raise ValueError(f"thermal_episode runs on CPU or CUDA tensors, not {soc0.device}")
+    if len(actions) != 3 or len(series) != 7 or len(curves) != 4:
+        raise ValueError("thermal_episode takes 3 plans, 7 series and 4 curves")
+    S, B = actions[2].shape
+    D = soc0.shape[0]
+    n_knots = curves[0].shape[0]
+    inputs = [*actions, *series, bparams, *curves, tparams, csoc0, dsoc0, soc0, eff0, deg0]
+    shapes = [(S, B)] * 10 + [(8, B)] + [(n_knots, B)] * 4 + [(N_TROWS, B)] + [(D, B)] * 5
+    for x, shape in zip(inputs, shapes):
+        if x.device != soc0.device or x.dtype != torch.float32 \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"thermal_episode wants contiguous float32 {shape} on "
+                             f"{soc0.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not 2 <= n_knots <= MAX_KNOTS:
+        raise ValueError(f"thermal_episode takes 2 to {MAX_KNOTS} curve knots, got {n_knots}")
+    outs = [torch.empty((D, B), dtype=torch.float32, device=soc0.device) for _ in range(8)]
+    rec = (torch.empty((N_TREC, S, B), dtype=torch.float32, device=soc0.device)
+           if record else None)
+    stream = torch.cuda.current_stream(soc0.device).cuda_stream
+    err = _launcher()(*[x.data_ptr() for x in inputs + outs],
+                      None if rec is None else rec.data_ptr(),
+                      D, B, S, n_knots, hours_ratio, ratio, stream)
+    if err != 0:
+        raise RuntimeError(f"thermal_episode kernel launch failed: CUDA error {err}")
+    thermal_episode.launches += 1
+    return tuple(outs) + ((rec,) if record else ())
+
+
+thermal_episode.launches = 0

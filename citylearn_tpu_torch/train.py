@@ -1,9 +1,11 @@
 """Batched SAC training: thousands of district copies feeding
 per-building learners on one CUDA card.
 
-The port of ``citylearn_tpu/train.py``'s ``BatchedSAC`` for battery+PV
-districts (the reference's per-building SAC, ``citylearn/agents/sac.py``,
-scaled out over a district batch):
+The port of ``citylearn_tpu/train.py``'s ``BatchedSAC`` (the reference's
+per-building SAC, ``citylearn/agents/sac.py``, scaled out over a district
+batch). It is held against the JAX trainer on battery+PV districts; a
+thermal-storage district trains through the per-step path, which the
+tests do not cover yet:
 
 - **Every district's experience is learned from.** The replay buffer is
   laid out (S, D, ...) — S slots x D districts — and each env step writes

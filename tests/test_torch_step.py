@@ -109,9 +109,9 @@ def test_rollout_districts_hour_rbc_matches_jax(dataset, central):
 def test_unsupported_configuration_raises(dataset):
     (cfg, params), _ = _both(dataset, "default", False)
     states = rollout.batched_initial_states(cfg, params, 1, device="cpu")
-    hot = dataclasses.replace(cfg, any_cooling=True)
-    with pytest.raises(NotImplementedError, match="any_cooling"):
-        rollout.rollout_districts(hot, params, states, 2, rollout.hour_rbc_policy(RBC),
+    lstm = dataclasses.replace(cfg, has_dynamics=True)
+    with pytest.raises(NotImplementedError, match="has_dynamics"):
+        rollout.rollout_districts(lstm, params, states, 2, rollout.hour_rbc_policy(RBC),
                                   device="cpu")
 
 
@@ -135,10 +135,8 @@ def test_district_step_matches_jax_from_each_state(dataset, central):
     _, (before, after, jout) = jax.jit(lambda s, a: jax.lax.scan(body, s, a))(
         jstate, jnp.asarray(actions))
     t = lambda x: torch.tensor(np.asarray(x))
-    states = EnvState(t=t(before.t), data_offset=t(before.data_offset),
-                      battery_soc=t(before.battery_soc),
-                      battery_efficiency=t(before.battery_efficiency),
-                      battery_degraded_capacity=t(before.battery_degraded_capacity))
+    states = EnvState(**{f.name: t(getattr(before, f.name))
+                         for f in dataclasses.fields(EnvState)})
     nxt, out = district_step(cfg, params, states,
                              rollout.actions_dict_from_array(torch.tensor(actions)))
     pairs = {
