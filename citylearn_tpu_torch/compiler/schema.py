@@ -1,21 +1,23 @@
 """Schema compiler: ``schema.json`` + CSVs -> :class:`DistrictSpec`.
 
 The counterpart of ``citylearn_tpu.compiler.schema`` for the districts
-the port carries (battery+PV and thermal storage): the same device
-resolution, series defaults, noise stream and observation/action
+the port carries (battery+PV, thermal storage, and EV chargers with
+electric vehicles, washing machines and charging constraints): the same
+device resolution, series defaults, noise stream and observation/action
 surface, with CSVs read by the standard ``csv`` module instead of
 pandas. Schema blocks outside those districts raise
-``NotImplementedError`` naming the block: LSTM dynamics, electric
-vehicles and chargers, charging constraints, washing machines,
-occupants, autosizing and stochastic power outages. Missing HVAC devices
-and tanks resolve to the same inert defaults as in the JAX package.
+``NotImplementedError`` naming the block: LSTM dynamics, occupants,
+autosizing and stochastic power outages. Missing HVAC devices and tanks
+resolve to the same inert defaults as in the JAX package.
 """
 
 from __future__ import annotations
 
+import ast
 import csv
 import json
 import os
+import re
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -30,9 +32,12 @@ from citylearn_tpu_torch.compiler.spec import (
     DEFAULT_COMFORT_BAND,
     BatterySpec,
     BuildingSpec,
+    ChargerSpec,
     DistrictSpec,
+    ElectricVehicleSpec,
     HVACDeviceSpec,
     StorageTankSpec,
+    WashingMachineSpec,
 )
 from citylearn_tpu_torch.utilities import NoiseUtils
 
@@ -47,6 +52,27 @@ WEATHER_FIELDS = [
     for i in (1, 2, 3)
 ]
 PRICING_FIELDS = ["electricity_pricing"] + [f"electricity_pricing_predicted_{i}" for i in (1, 2, 3)]
+
+# charger helper observations -> per-charger names (reference
+# citylearn.py:2010-2030, building.py:1221-1331)
+CHARGER_OBS_EXPANSION = [
+    ("electric_vehicle_charger_connected_state",
+     "electric_vehicle_charger_{id}_connected_state"),
+    ("connected_electric_vehicle_at_charger_departure_time",
+     "connected_electric_vehicle_at_charger_{id}_departure_time"),
+    ("connected_electric_vehicle_at_charger_required_soc_departure",
+     "connected_electric_vehicle_at_charger_{id}_required_soc_departure"),
+    ("connected_electric_vehicle_at_charger_soc",
+     "connected_electric_vehicle_at_charger_{id}_soc"),
+    ("connected_electric_vehicle_at_charger_battery_capacity",
+     "connected_electric_vehicle_at_charger_{id}_battery_capacity"),
+    ("electric_vehicle_charger_incoming_state",
+     "electric_vehicle_charger_{id}_incoming_state"),
+    ("incoming_electric_vehicle_at_charger_estimated_arrival_time",
+     "incoming_electric_vehicle_at_charger_{id}_estimated_arrival_time"),
+    ("incoming_electric_vehicle_at_charger_estimated_soc_arrival",
+     "incoming_electric_vehicle_at_charger_{id}_estimated_soc_arrival"),
+]
 
 Table = Dict[str, np.ndarray]
 
@@ -73,6 +99,87 @@ def _read_csv(cache: Dict[str, Table], root: str, filename: str) -> Table:
     if path not in cache:
         cache[path] = read_csv_columns(path)
     return cache[path]
+
+
+def _read_csv_raw(path: str) -> Dict[str, List[str]]:
+    """One list of unparsed cells per column."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return {name: [r[j] for r in rows[1:]] for j, name in enumerate(rows[0])}
+
+
+_INT_CELL = re.compile(r"[+-]?\d+")
+
+
+def _load_charger_sim(path: str, sim_start: int, sim_end: int,
+                      ev_name_to_index: dict, noise_std: float,
+                      noise_rng: Optional[np.random.RandomState] = None) -> dict:
+    """Parse a charger schedule CSV with the reference's normalization
+    (reference ``data.py:663-768``). ``noise_std`` adds seeded Gaussian
+    noise (scaled by 1/100, clipped to [0, 1]) to the required/estimated
+    SOC columns (``data.py:748-768``); the reference draws on the full
+    CSV length from the global RNG, replicated here from the compile-time
+    seeded stream.
+
+    The state and EV-id columns follow what ``pandas.read_csv`` hands the
+    reference: a state column parses (``int(str(s))`` when ``isdigit``)
+    only when pandas types it as integers, that is when every cell is an
+    integer literal, or as strings; a column with an empty cell is float
+    there and every state reads NaN. EV ids resolve only from a column
+    pandas keeps as strings."""
+    full = read_csv_columns(path)
+    raw = _read_csv_raw(path)
+    n_full = len(raw["electric_vehicle_charger_state"])
+    noise = NoiseUtils.make_noise_fn(noise_std, noise_rng)
+
+    def soc_noised(name):
+        col = full[name].astype(float)
+        col = np.where(np.isnan(col), -0.1, col)
+        nz = noise(n_full)
+        return np.where(col != -0.1, np.clip(col / 100.0 + nz / 100.0, 0, 1), col)
+
+    req_full = soc_noised("electric_vehicle_required_soc_departure")
+    est_full = soc_noised("electric_vehicle_estimated_soc_arrival")
+    sl = slice(sim_start, sim_end + 1)
+    state_cells = [c.strip() for c in raw["electric_vehicle_charger_state"]]
+    state_is_float = (full["electric_vehicle_charger_state"].dtype.kind == "f"
+                      and not all(_INT_CELL.fullmatch(c) for c in state_cells))
+    state = np.array([np.nan if state_is_float or not c.isdigit() else int(c)
+                      for c in state_cells[sl]], dtype=float)
+    ids_are_strings = full["electric_vehicle_id"].dtype.kind != "f"
+    ids = raw["electric_vehicle_id"][sl]
+    numeric = lambda name: full[name].astype(float)[sl]
+    cap = numeric("electric_vehicle_battery_capacity_khw")
+    soc_now = numeric("current_soc")
+    soc_now = np.where(np.isnan(soc_now), -0.1, soc_now)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        current_soc = np.clip(soc_now / cap, 0, 1)
+    dep = numeric("electric_vehicle_departure_time")
+    dep = np.where(np.isnan(dep), -1, dep).astype(int)
+    arr = numeric("electric_vehicle_estimated_arrival_time")
+    arr = np.where(np.isnan(arr), -1, arr).astype(int)
+
+    def resolve_ids(want_state):
+        out = np.full(len(state), -1, np.int32)
+        for i, (s, ev_id) in enumerate(zip(state, ids)):
+            if s == want_state and ids_are_strings \
+                    and ev_id.strip() not in ("", "nan") and ev_id in ev_name_to_index:
+                out[i] = ev_name_to_index[ev_id]
+        return out
+
+    return dict(state=state, connected_ev=resolve_ids(1),
+                incoming_ev=resolve_ids(2), capacity_kwh=cap,
+                current_soc=current_soc, departure_time=dep, required_soc=req_full[sl],
+                arrival_time=arr, estimated_soc_arrival=est_full[sl])
+
+
+def _load_profile(cell: str) -> np.ndarray:
+    """A washing machine's ``load_profile`` cell, a Python list literal;
+    anything else is an empty profile."""
+    try:
+        return np.array(ast.literal_eval(cell.strip()), dtype=float)
+    except (ValueError, SyntaxError, TypeError):
+        return np.array([], dtype=float)
 
 
 def _series_from_energy_csv(df: Table, noise_std: float = 0.0,
@@ -289,19 +396,27 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
     rolling = bool(get("rolling_episode_split", False))
     random_split = bool(get("random_episode_split", False))
 
-    if any(ev.get("include", True)
-           for ev in (schema.get("electric_vehicles_def") or {}).values()):
-        _unsupported("electric_vehicles_def")
-
-    # charger/washing-machine helper entries are not building observations
-    # or actions (reference citylearn.py:2010-2030); with no chargers or
-    # machines they expand to nothing
-    obs_schema = {k: v for k, v in schema["observations"].items()
-                  if "electric_vehicle_" not in k and "washing_machine_" not in k}
-    act_schema = {k: v for k, v in schema["actions"].items()
-                  if "electric_vehicle_" not in k and "washing_machine" not in k}
+    # split charger/washing-machine helper entries out of the base obs/action
+    # schema (reference citylearn.py:2010-2030); they expand per charger/WM.
+    raw_obs = schema["observations"]
+    raw_act = schema["actions"]
+    charger_obs_helper = {k: v for k, v in raw_obs.items() if "electric_vehicle_" in k}
+    wm_obs_helper = {k: v for k, v in raw_obs.items() if "washing_machine_" in k}
+    charger_act_helper = {k: v for k, v in raw_act.items() if "electric_vehicle_" in k}
+    wm_act_helper = {k: v for k, v in raw_act.items() if "washing_machine" in k}
+    obs_schema = {k: v for k, v in raw_obs.items()
+                  if k not in charger_obs_helper and k not in wm_obs_helper}
+    act_schema = {k: v for k, v in raw_act.items()
+                  if k not in charger_act_helper and k not in wm_act_helper}
     shared_observations = [k for k, v in obs_schema.items()
                            if v.get("shared_in_central_agent", False)]
+
+    # electric vehicles (reference citylearn.py:2095-2098, 2558-2594);
+    # batteries resolved after the building loop once time_step_ratio is known
+    ev_defs = [(name, ev_schema) for name, ev_schema in
+               (schema.get("electric_vehicles_def") or {}).items()
+               if ev_schema.get("include", True)]
+    ev_name_to_index = {name: i for i, (name, _) in enumerate(ev_defs)}
 
     cache: Dict[str, Table] = {}
     buildings: List[BuildingSpec] = []
@@ -315,9 +430,6 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
         # uses 'citylearn.citylearn.Building' (citylearn.py:2211)
         b_type = b_schema.get("type") or "citylearn.citylearn.Building"
         type_name = b_type.rsplit(".", 1)[-1]
-        for block in ("chargers", "washing_machines", "charging_constraints"):
-            if b_schema.get(block):
-                _unsupported(block, b_name)
         if b_schema.get("dynamics") is not None:
             _unsupported("dynamics", b_name)
         if b_schema.get("occupant") is not None and type_name == \
@@ -414,6 +526,53 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
         heating_storage = _resolve_storage_tank(hs_block, dev_seed("heating_storage", hs_block), time_step_ratio)
         dhw_storage = _resolve_storage_tank(ds_block, dev_seed("dhw_storage", ds_block), time_step_ratio)
 
+        # --- chargers + washing machines --------------------------------
+        chargers: List[ChargerSpec] = []
+        for charger_name, charger_cfg in (b_schema.get("chargers") or {}).items():
+            attrs = charger_cfg.get("attributes") or {}
+            ch_eff = float(attrs.get("efficiency") or 1.0)
+
+            def _eff_curve(curve):
+                # power-dependent efficiency (charger.py:252-281): schema
+                # stores [[power, eff], ...]; constant at `efficiency` when
+                # absent so the lookup degenerates to the scalar
+                if curve is None:
+                    curve = [[0.0, ch_eff], [1.0, ch_eff]]
+                return seeding.pad_curve(curve, CURVE_PAD)
+
+            cex, cey = _eff_curve(attrs.get("charge_efficiency_curve"))
+            dex, dey = _eff_curve(attrs.get("discharge_efficiency_curve"))
+            sim = _load_charger_sim(
+                os.path.join(root, charger_cfg["charger_simulation"]),
+                sim_start, sim_end, ev_name_to_index,
+                float(charger_cfg.get("noise_std", 0.0)), noise_rng)
+            power = lambda key, default: float(attrs[key] if attrs.get(key) is not None
+                                               else default)
+            chargers.append(ChargerSpec(
+                charger_id=charger_name,
+                building_index=b_index,
+                efficiency=ch_eff,
+                charge_eff_x=cex, charge_eff_y=cey,
+                discharge_eff_x=dex, discharge_eff_y=dey,
+                max_charging_power=power("max_charging_power", 50.0),
+                min_charging_power=float(attrs.get("min_charging_power") or 0.0),
+                max_discharging_power=power("max_discharging_power", 50.0),
+                min_discharging_power=float(attrs.get("min_discharging_power") or 0.0),
+                **sim))
+
+        washing_machines: List[WashingMachineSpec] = []
+        for wm_name, wm_cfg in (b_schema.get("washing_machines") or {}).items():
+            wm_path = os.path.join(root, wm_cfg["washing_machine_energy_simulation"])
+            wdf = read_csv_columns(wm_path)
+            start_arr = wdf["wm_start_time_step"].astype(float)
+            end_arr = wdf["wm_end_time_step"].astype(float)
+            profiles = [_load_profile(lp) for lp in _read_csv_raw(wm_path)["load_profile"]]
+            washing_machines.append(WashingMachineSpec(
+                name=wm_name, building_index=b_index,
+                wm_start=np.where(np.isnan(start_arr), -1, start_arr).astype(int)[sim_start:sim_end + 1],
+                wm_end=np.where(np.isnan(end_arr), -1, end_arr).astype(int)[sim_start:sim_end + 1],
+                load_profiles=profiles[sim_start:sim_end + 1]))
+
         # --- observation/action surface --------------------------------
         # constructor overrides flip the schema's active flags in schema-key
         # order (reference process_metadata, citylearn.py:2411-2500); flat
@@ -438,6 +597,60 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
             k for k, v in act_schema.items()
             if (v.get("active", False) if override_act is None
                 else k in override_act) and k not in inactive_act]
+        # per-charger / per-WM / charging-constraint expansion. The
+        # reference surfaces constraint observations *before* the charger
+        # observations, in the order: phase one-hots, building headroom,
+        # phase headrooms, violation.
+        cc = b_schema.get("charging_constraints")
+        if cc:
+            obs_cfg = cc.get("observations") or {}
+            if bool(obs_cfg.get("phase_encoding", False)) and (cc.get("phases") or []):
+                phase_map = {cid: (p.get("name") or "")
+                             for p in (cc.get("phases") or [])
+                             for cid in (p.get("chargers") or [])}
+                phase_names = sorted({p.get("name") for p in cc.get("phases")
+                                      if p.get("name")})
+                if any(ch.charger_id not in phase_map for ch in chargers):
+                    phase_names = phase_names + ["unassigned"]
+                for ch in chargers:
+                    for pn in phase_names:
+                        active_observations.append(
+                            f"charging_phase_one_hot_{ch.charger_id}_{pn}")
+            expose_headroom = bool(obs_cfg.get(
+                "headroom", cc.get("expose_observations", True)))
+            if expose_headroom:
+                if cc.get("building_limit_kw") is not None:
+                    active_observations.append("charging_building_headroom_kw")
+                for phase in (cc.get("phases") or []):
+                    if phase.get("limit_kw") is not None:
+                        name_p = phase.get("name") or "phase"
+                        active_observations.append(
+                            f"charging_phase_{name_p}_headroom_kw")
+            if bool(obs_cfg.get("violation", True)):
+                active_observations.append("charging_constraint_violation_kwh")
+
+        def helper_on(helper_map, key, override):
+            # overrides flip helper metadata too (citylearn.py:2432-2441)
+            if override is not None:
+                return key in override
+            v = helper_map.get(key)
+            return bool(v and v.get("active", False))
+
+        for ch in chargers:
+            for helper_key, template in CHARGER_OBS_EXPANSION:
+                if helper_on(charger_obs_helper, helper_key, override_obs) \
+                        and helper_key not in inactive_obs:
+                    active_observations.append(template.format(id=ch.charger_id))
+            if helper_on(charger_act_helper, "electric_vehicle_storage", override_act) \
+                    and "electric_vehicle_storage" not in inactive_act:
+                active_actions.append(f"electric_vehicle_storage_{ch.charger_id}")
+        for wm in washing_machines:
+            if helper_on(wm_obs_helper, "washing_machine_start_time_step", override_obs):
+                active_observations.append(f"{wm.name}_start_time_step")
+            if helper_on(wm_obs_helper, "washing_machine_end_time_step", override_obs):
+                active_observations.append(f"{wm.name}_end_time_step")
+            if helper_on(wm_act_helper, "washing_machine", override_act):
+                active_actions.append(wm.name)
 
         spec = BuildingSpec(
             name=b_name,
@@ -458,19 +671,36 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
             simulate_power_outage=simulate_outage,
             stochastic_power_outage=stochastic_outage,
             stochastic_power_outage_model=power_outage_cfg.get("stochastic_power_outage_model"),
+            chargers=chargers,
+            washing_machines=washing_machines,
             charging_constraints=b_schema.get("charging_constraints"),
         )
 
         lo, hi = estimate_observation_space_limits(spec, sim_start, sim_end)
+        if "charging_constraint_violation_kwh" in hi:
+            hi["charging_constraint_violation_kwh"] *= seconds_per_time_step / 3600.0
         spec.observation_low, spec.observation_high = lo, hi
         spec.action_low, spec.action_high = estimate_action_space(spec, sim_start, sim_end)
         buildings.append(spec)
         b_index += 1
 
+    electric_vehicles: List[ElectricVehicleSpec] = []
+    for i, (ev_name, ev_schema) in enumerate(ev_defs):
+        attrs = dict(ev_schema["battery"]["attributes"])
+        # reference defaults: initial_soc random.uniform(0,1) (global RNG,
+        # non-reproducible — 0.5 here) and depth_of_discharge 0.10
+        # (citylearn.py:2562-2575); battery seeded with the schema's seed.
+        if attrs.get("initial_soc") is None:
+            attrs["initial_soc"] = 0.5
+        attrs.setdefault("depth_of_discharge", 0.10)
+        bat = _resolve_battery({"attributes": attrs}, schema_random_seed, time_step_ratio)
+        electric_vehicles.append(ElectricVehicleSpec(name=ev_name, index=i, battery=bat))
+
     return DistrictSpec(
         schema=schema,
         dataset_dir=root,
         buildings=buildings,
+        electric_vehicles=electric_vehicles,
         central_agent=central_agent,
         random_seed=random_seed,
         seconds_per_time_step=seconds_per_time_step,

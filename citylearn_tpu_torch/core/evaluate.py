@@ -69,7 +69,8 @@ def collect_episode(cfg: StaticConfig, params: DistrictParams,
             cost=out.net_electricity_consumption_cost,
             emission=out.net_electricity_consumption_emission,
             storage=(out.cooling_storage_consumption + out.heating_storage_consumption
-                     + out.dhw_storage_consumption + out.battery_consumption),
+                     + out.dhw_storage_consumption + out.battery_consumption
+                     + out.chargers_consumption),
             solar=out.solar_generation,             # negative kWh
             pricing=params.series.electricity_pricing[tau],
             carbon=params.series.carbon_intensity[tau],

@@ -4,8 +4,9 @@ whole-episode kernels.
 The reference's ``evaluate()`` (``citylearn.py:1136-1323``) consumes the
 per-step series the env accumulated while stepping. For a kernel-eligible
 district (battery+PV, the 2022 family; cooling and DHW storage plus
-battery, the 2021 family) under an *open-loop* policy (hour-indexed RBC
-tables or per-building per-step plans), the episode runs as ONE kernel
+battery, the 2021 family; battery+PV with EV chargers and washing
+machines, the plus_evs family) under an *open-loop* policy (hour-indexed
+RBC tables or per-target per-step plans), the episode runs as ONE kernel
 launch recording district 0's per-step series (net, balances, SOCs,
 device outputs); every other KPI input is data-driven, so the recorded
 streams rebuild the exact ``collected`` dict of
@@ -29,12 +30,18 @@ from citylearn_tpu_torch.core import hvac, rollout_fast
 from citylearn_tpu_torch.core.evaluate import kpi_table, window
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS
 from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
+from citylearn_tpu_torch.ops import ev as ev_ops
 from citylearn_tpu_torch.ops.thermal import R_BBAL, R_CBAL, R_COUT, R_DBAL, R_DOUT, R_NET
+
+#: non-building-axis action classes (per-charger / per-machine plans)
+EXTRA_KEYS = ("electric_vehicle_storage", "washing_machine")
 
 
 class ScriptedPolicy:
     """An open-loop action plan: ``{action_name: (24,) hour table | (S,)
-    per-step series | (S, B) per-building plan}``.
+    per-step series | (S, n) per-target plan}`` (targets: buildings;
+    chargers for ``electric_vehicle_storage``; machines for
+    ``washing_machine``).
 
     A length-24 leading axis is by default interpreted as an hour-indexed
     table (reference HourRBC semantics). For a 24-STEP per-step plan
@@ -48,7 +55,7 @@ class ScriptedPolicy:
 
     def __init__(self, plans: Dict[str, np.ndarray],
                  hour_tables: Optional[bool] = None):
-        unknown = set(plans) - set(ACTION_KEYS)
+        unknown = set(plans) - set(ACTION_KEYS) - set(EXTRA_KEYS)
         if unknown:
             raise ValueError(f"unknown action names: {sorted(unknown)}")
         self.plans = {k: np.asarray(v, np.float32) for k, v in plans.items()}
@@ -69,13 +76,16 @@ class ScriptedPolicy:
 
     def expanded(self, cfg: StaticConfig, params: DistrictParams,
                  n_steps: int, data_offset: int = 0) -> Dict[str, np.ndarray]:
-        """Normalize every plan to (S, B). Hour tables resolve against the
-        episode window's hours (``data_offset``); explicit plans are
-        episode-relative."""
+        """Normalize every plan to (S, n) over its target axis —
+        buildings for building-level actions, chargers for
+        ``electric_vehicle_storage``, machines for ``washing_machine``.
+        Hour tables resolve against the episode window's hours
+        (``data_offset``); explicit plans are episode-relative."""
         hours = params.series.hour[data_offset:data_offset + n_steps, 0].cpu().numpy()
-        n = cfg.n_buildings
+        widths = _target_widths(cfg)
         out = {}
         for k, v in self.plans.items():
+            n = widths.get(k, cfg.n_buildings)
             if self._is_hour_table(v, n, n_steps):
                 out[k] = (v[hours - 1] if v.ndim == 2
                           else np.broadcast_to(v[hours - 1][:, None],
@@ -98,27 +108,41 @@ class ScriptedPolicy:
         hours_full = params.series.hour[:, 0].cpu().numpy()
         B = cfg.n_buildings
         dev = params.device
+        widths = _target_widths(cfg)
         by_tau, by_t = {}, {}
         for k, v in self.plans.items():
-            if self._is_hour_table(v, B, n_steps):
+            n = widths.get(k, B)
+            if self._is_hour_table(v, n, n_steps):
                 table = (v[hours_full - 1] if v.ndim == 2 else
                          np.broadcast_to(v[hours_full - 1][:, None],
-                                         (hours_full.shape[0], B)))
-                by_tau[k] = torch.as_tensor(np.ascontiguousarray(table), device=dev)
+                                         (hours_full.shape[0], n)))
+                by_tau[k] = torch.tensor(np.ascontiguousarray(table), device=dev)
             else:
                 plan = np.asarray(v, np.float32)[:n_steps]
                 if plan.ndim == 1:
-                    plan = np.broadcast_to(plan[:, None], (n_steps, B))
-                by_t[k] = torch.as_tensor(np.ascontiguousarray(plan), device=dev)
+                    plan = np.broadcast_to(plan[:, None], (n_steps, n))
+                by_t[k] = torch.tensor(np.ascontiguousarray(plan), device=dev)
+        keys = list(ACTION_KEYS)
+        if cfg.has_evs:
+            keys.append("electric_vehicle_storage")
+        if cfg.has_washing_machines:
+            keys.append("washing_machine")
 
         def policy(params, states):
             tau = (states.data_offset + states.t).long()
             t = states.t.long()
-            zero = torch.zeros((t.shape[0], B), dtype=torch.float32, device=t.device)
+            zero = lambda k: torch.zeros((t.shape[0], widths.get(k, B)), dtype=torch.float32,
+                                         device=t.device)
             return {k: (by_tau[k][tau] if k in by_tau else
-                        by_t[k][t] if k in by_t else zero)
-                    for k in ACTION_KEYS}
+                        by_t[k][t] if k in by_t else zero(k))
+                    for k in keys}
         return policy
+
+
+def _target_widths(cfg: StaticConfig) -> Dict[str, int]:
+    """Plan width of the action classes that are not per building."""
+    return {"electric_vehicle_storage": max(cfg.n_chargers, 1),
+            "washing_machine": max(cfg.n_washing_machines, 1)}
 
 
 def kernel_family(cfg: StaticConfig) -> Optional[str]:
@@ -127,6 +151,8 @@ def kernel_family(cfg: StaticConfig) -> Optional[str]:
         return "battery"
     if rollout_fast.eligible_thermal(cfg):
         return "thermal"
+    if rollout_fast.eligible_ev(cfg):
+        return "ev"
     return None
 
 
@@ -146,6 +172,12 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch
     w = lambda arr: window(arr, start, S)                    # (S, 1, B)
     if family == "battery":
         net, storage = rec[0], _with_t0_double(rec[1])
+        served = w(ser.non_shiftable_load)
+    elif family == "ev":
+        net = rec[ev_ops.R_NET]
+        # without_storage subtracts charger consumption too
+        # (building.py:360-366); washing machines are NOT storage
+        storage = _with_t0_double(rec[ev_ops.R_BBAL]) + rec[ev_ops.R_CHC]
         served = w(ser.non_shiftable_load)
     else:
         net = rec[R_NET]
@@ -214,6 +246,10 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
             cfg, params, n_districts or 1,
             plans.get("electrical_storage", np.zeros((S, cfg.n_buildings), np.float32)),
             n_steps=S, record_series=True, data_offset=off, device=dev)
+    elif family == "ev":
+        out = rollout_fast.run_ev_episode(
+            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
+            data_offset=off, device=dev)
     else:
         out = rollout_fast.run_thermal_episode(
             cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,

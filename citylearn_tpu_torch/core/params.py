@@ -3,30 +3,34 @@
 Data layout is time-major ``(T, B)`` so each step gathers one contiguous
 ``(B,)`` row per field (replaces the reference's per-step
 ``TimeSeriesData.__getattr__`` slicing, ``data.py:313``). The packed
-leaves equal those of the JAX package's ``pack`` for the battery+PV and
-thermal-storage districts (its float64-parity provenance flags are not
-carried).
+leaves equal those of the JAX package's ``pack`` for the battery+PV,
+thermal-storage and EV districts (its float64-parity provenance flags are
+not carried).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple, get_type_hints
+from typing import Dict, List, Optional, Tuple, get_type_hints
 
 import numpy as np
 import torch
 
 from citylearn_tpu_torch import resolve_device
+from citylearn_tpu_torch.compiler.events import resolve_ev_events
 from citylearn_tpu_torch.compiler.spaces import heat_pump_cop_np
 from citylearn_tpu_torch.compiler.spec import BuildingSpec, DistrictSpec
 from citylearn_tpu_torch.core.types import (
     BatteryParams,
+    ChargerParams,
     DistrictParams,
     EnvState,
+    EVParams,
     HVACParams,
     SeriesData,
     StaticConfig,
     StorageTankParams,
+    WashingMachineParams,
 )
 
 
@@ -110,21 +114,192 @@ def _obs_series(b: BuildingSpec, name: str, sl: slice) -> np.ndarray:
     return np.zeros(n, np.float32)
 
 
+def _ev_obs_columns(spec: DistrictSpec, T: int) -> Dict[Tuple[int, str], np.ndarray]:
+    """Data-driven values for per-charger / per-WM observation columns
+    (reference ``building.py:1221-1331``), keyed by (building, name). The
+    SOC column holds the value visible at *observation* time: the forced
+    arrival SOC when an EV just (re)connected, else the reference's stale
+    0.0."""
+    cols = {}
+    n_evs = len(spec.electric_vehicles)
+    force = None
+    if any(b.chargers for b in spec.buildings) and n_evs:
+        force, _ = resolve_ev_events(spec.buildings, n_evs, T, drift_seed=spec.random_seed)
+    for bi, b in enumerate(spec.buildings):
+        for ch in b.chargers:
+            cid = ch.charger_id
+            conn = ch.connected_ev >= 0
+            inc = ch.incoming_ev >= 0
+            n = len(conn)
+            soc_col = np.full(n, -0.1, np.float32)
+            if force is not None:
+                f = force[np.arange(min(n, len(force))),
+                          np.clip(ch.connected_ev[:len(force)], 0, None)]
+                soc_vis = np.where(np.isfinite(f), f, 0.0)
+                soc_col[:len(f)] = np.where(conn[:len(f)], soc_vis, -0.1)
+            f32 = lambda a: a.astype(np.float32)
+            at = f"connected_electric_vehicle_at_charger_{cid}"
+            incoming = f"incoming_electric_vehicle_at_charger_{cid}"
+            cols[(bi, f"electric_vehicle_charger_{cid}_connected_state")] = f32(conn)
+            cols[(bi, f"{at}_departure_time")] = f32(np.where(conn, ch.departure_time, -1))
+            cols[(bi, f"{at}_required_soc_departure")] = f32(np.where(conn, ch.required_soc, -0.1))
+            cols[(bi, f"{at}_soc")] = soc_col
+            cols[(bi, f"{at}_battery_capacity")] = f32(np.where(conn, ch.capacity_kwh, -1.0))
+            cols[(bi, f"electric_vehicle_charger_{cid}_incoming_state")] = f32(inc)
+            cols[(bi, f"{incoming}_estimated_arrival_time")] = f32(
+                np.where(inc, ch.arrival_time, -1))
+            cols[(bi, f"{incoming}_estimated_soc_arrival")] = f32(
+                np.where(inc, ch.estimated_soc_arrival, -0.1))
+        for wm in b.washing_machines:
+            cols[(bi, f"{wm.name}_start_time_step")] = wm.wm_start.astype(np.float32)
+            cols[(bi, f"{wm.name}_end_time_step")] = wm.wm_end.astype(np.float32)
+        # charging-constraint phase one-hots are static data; headroom and
+        # violation columns stay zero (the Gym env overrides them at run time)
+        cc = b.charging_constraints
+        if cc and (cc.get("observations") or {}).get("phase_encoding"):
+            phase_map = {cid: (p.get("name") or "")
+                         for p in (cc.get("phases") or [])
+                         for cid in (p.get("chargers") or [])}
+            for name in b.active_observations:
+                if name.startswith("charging_phase_one_hot_"):
+                    rest = name[len("charging_phase_one_hot_"):]
+                    for ch in b.chargers:
+                        if rest.startswith(ch.charger_id + "_"):
+                            pn = rest[len(ch.charger_id) + 1:]
+                            assigned = phase_map.get(ch.charger_id, "unassigned")
+                            cols[(bi, name)] = np.full(
+                                T, 1.0 if assigned == pn else 0.0, np.float32)
+    return cols
+
+
 def _obs_static(spec: DistrictSpec, layout: ObsLayout) -> np.ndarray:
-    """(T, B, K_union) data-driven observation matrix. Charger and
-    washing-machine columns (the JAX package's ``_ev_obs_columns``) need
-    blocks the port does not carry yet."""
-    if any(b.chargers or b.washing_machines for b in spec.buildings):
-        raise NotImplementedError("observation columns of chargers and washing "
-                                  "machines are not ported yet")
+    """(T, B, K_union) data-driven observation matrix."""
     sl = slice(spec.simulation_start_time_step, spec.simulation_end_time_step + 1)
-    obs = np.zeros((spec.simulation_time_steps, spec.n_buildings,
-                    len(layout.union_names)), np.float32)
+    T = spec.simulation_time_steps
+    obs = np.zeros((T, spec.n_buildings, len(layout.union_names)), np.float32)
+    ev_cols = _ev_obs_columns(spec, T)
     for bi, b in enumerate(spec.buildings):
         for ki, name in enumerate(layout.union_names):
-            if name in b.active_observations:
+            if name not in b.active_observations:
+                continue
+            if (bi, name) in ev_cols:
+                col = ev_cols[(bi, name)]
+                obs[:len(col), bi, ki] = col[:T]
+            else:
                 obs[:, bi, ki] = _obs_series(b, name, sl)
     return obs
+
+
+def _pack_evs(spec: DistrictSpec, episode_steps: int, t
+              ) -> Tuple[Optional[ChargerParams], Optional[EVParams],
+                         Optional[WashingMachineParams], Dict]:
+    """Stack chargers/EVs/washing machines + precompile SOC event tensors;
+    ``t`` puts a numpy array on the device. Also returns the
+    ``StaticConfig`` fields of the EV family."""
+    all_chargers = [ch for b in spec.buildings for ch in b.chargers]
+    all_wms = [wm for b in spec.buildings for wm in b.washing_machines]
+    n_evs = len(spec.electric_vehicles)
+    cfg = dict(has_evs=len(all_chargers) > 0,
+               has_washing_machines=len(all_wms) > 0,
+               n_chargers=len(all_chargers), n_evs=n_evs,
+               n_washing_machines=len(all_wms))
+    rb_attrs = (spec.schema.get("reward_function") or {}).get("attributes") or {}
+    weights = rb_attrs.get("weights")
+    if weights:
+        cfg["ev_reward_weights"] = (
+            float(weights.get("no_car_charging", -5.0)),
+            float(weights.get("battery_limits", -2.0)),
+            float(weights.get("soc_impossible", -10.0)),
+            float(weights.get("soc_under", -5.0)),
+            float(weights.get("close_soc", 10.0)),
+            float(weights.get("self_ev_consumption", 5.0)),
+            float(weights.get("extra_self_production", 5.0)))
+
+    chargers = evs = wms = None
+    f32 = lambda vals: t(np.asarray(vals, np.float32))
+    i32 = lambda vals: t(np.asarray(vals, np.int32))
+    if all_chargers:
+        def sched(field):
+            # pad/trim schedule arrays to the episode length (indexed by
+            # episode-relative t, like the reference's un-windowed data)
+            cols = []
+            for ch in all_chargers:
+                a = np.asarray(getattr(ch, field), np.float32)
+                if len(a) < episode_steps:
+                    a = np.pad(a, (0, episode_steps - len(a)), constant_values=-1)
+                cols.append(a[:episode_steps])
+            return np.stack(cols, axis=1)
+
+        # charging-constraint tables (building.py:764-994)
+        cc_building = np.full(spec.n_buildings, np.inf, np.float32)
+        cc_phase_index = np.full(len(all_chargers), -1, np.int32)
+        cc_phase_limits, cc_phase_buildings = [], []
+        has_cc = False
+        cid_to_slot = {ch.charger_id: i for i, ch in enumerate(all_chargers)}
+        for b in spec.buildings:
+            cc = b.charging_constraints
+            if not cc:
+                continue
+            has_cc = True
+            if cc.get("building_limit_kw") is not None:
+                cc_building[b.index] = float(cc["building_limit_kw"])
+            for phase in (cc.get("phases") or []):
+                limit = phase.get("limit_kw")
+                pid = len(cc_phase_limits)
+                cc_phase_limits.append(np.inf if limit is None else float(limit))
+                cc_phase_buildings.append(b.index)
+                for cid in (phase.get("chargers") or []):
+                    if cid in cid_to_slot:
+                        cc_phase_index[cid_to_slot[cid]] = pid
+        if not cc_phase_limits:
+            cc_phase_limits, cc_phase_buildings = [np.inf], [0]
+        cfg["has_charging_constraints"] = has_cc
+        cfg["n_charging_phases"] = len(cc_phase_limits)
+        cfg["charging_penalty_coefficient"] = float(
+            rb_attrs.get("charging_constraint_penalty_coefficient") or 1.0)
+
+        per_charger = lambda name: f32([getattr(ch, name) for ch in all_chargers])
+        chargers = ChargerParams(
+            **{name: per_charger(name) for name in (
+                "efficiency", "charge_eff_x", "charge_eff_y", "discharge_eff_x",
+                "discharge_eff_y", "max_charging_power", "min_charging_power",
+                "max_discharging_power", "min_discharging_power")},
+            building_index=i32([ch.building_index for ch in all_chargers]),
+            connected_ev=t(sched("connected_ev").astype(np.int32)),
+            departure_time=t(sched("departure_time")),
+            required_soc=t(sched("required_soc")),
+            capacity_kwh=t(sched("capacity_kwh")),
+            cc_phase_index=t(cc_phase_index),
+            cc_building_limit=t(cc_building),
+            cc_phase_limit=f32(cc_phase_limits),
+            cc_phase_building=i32(cc_phase_buildings))
+        force, drift = resolve_ev_events(spec.buildings, n_evs, episode_steps,
+                                         drift_seed=spec.random_seed)
+        evs = EVParams(
+            battery=BatteryParams(**{
+                f.name: f32([getattr(e.battery, f.name) for e in spec.electric_vehicles])
+                for f in dataclasses.fields(BatteryParams)}),
+            force_soc=t(force), drift_mult=t(drift))
+    if all_wms:
+        starts, ends, loads = [], [], []
+        for wm in all_wms:
+            tl = np.zeros(episode_steps, np.float32)
+            for step in range(min(episode_steps, len(wm.load_profiles))):
+                # reference energy_model.py:1327-1330: only entries whose
+                # (unused) target step fits the episode are added — and all
+                # of them land on the trigger step
+                profile = np.atleast_1d(wm.load_profiles[step])
+                n_fit = max(0, min(len(profile), episode_steps - step))
+                tl[step] = float(np.sum(profile[:n_fit]))
+            starts.append(np.asarray(wm.wm_start, np.int32)[:episode_steps])
+            ends.append(np.asarray(wm.wm_end, np.int32)[:episode_steps])
+            loads.append(tl)
+        wms = WashingMachineParams(
+            building_index=i32([wm.building_index for wm in all_wms]),
+            wm_start=t(np.stack(starts, axis=1)),
+            wm_end=t(np.stack(ends, axis=1)),
+            triggered_load=t(np.stack(loads, axis=1)))
+    return chargers, evs, wms, cfg
 
 
 def _episode_steps(spec: DistrictSpec) -> int:
@@ -227,7 +402,7 @@ def pack(spec: DistrictSpec, device=None
         return cls(**{k: t(v if v.dtype == bool else v.astype(np.float32))
                       for k, v in vals.items()})
 
-
+    chargers, evs, wms, ev_cfg = _pack_evs(spec, _episode_steps(spec), t)
     cfg = StaticConfig(
         n_buildings=spec.n_buildings,
         time_steps=_episode_steps(spec),
@@ -242,6 +417,7 @@ def pack(spec: DistrictSpec, device=None
         any_dhw=any(float(b.series["dhw_demand"][sl].max()) > 0
                     or b.dhw_storage.capacity > 0 for b in spec.buildings),
         **_reward_config(spec),
+        **ev_cfg,
     )
     layout = build_obs_layout(spec)
     params = DistrictParams(
@@ -250,7 +426,8 @@ def pack(spec: DistrictSpec, device=None
            for name in ("cooling_device", "heating_device", "dhw_device")},
         **{name: block(StorageTankParams, name)
            for name in ("cooling_storage", "heating_storage", "dhw_storage")},
-        obs_static=t(_obs_static(spec, layout)))
+        obs_static=t(_obs_static(spec, layout)),
+        chargers=chargers, evs=evs, washing_machines=wms)
     return cfg, params, layout
 
 
@@ -259,14 +436,23 @@ def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> DistrictParam
     dict keyed by field path — the JAX package's packed parameters
     carried across as numpy arrays. Keys the port does not read (the
     float64-parity provenance flags) are ignored; a missing key raises
-    ``KeyError``."""
+    ``KeyError``, except that a charger, EV or washing-machine block with
+    no key at all is absent (``None``), as on a district without them."""
     dev = resolve_device(device)
 
     def build(cls, prefix=""):
-        return cls(**{
-            name: (build(kind, f"{prefix}{name}.") if dataclasses.is_dataclass(kind)
-                   else torch.tensor(np.asarray(tree[f"{prefix}{name}"]), device=dev))
-            for name, kind in get_type_hints(cls).items()})
+        out = {}
+        for name, kind in get_type_hints(cls).items():
+            path = f"{prefix}{name}"
+            optional = [a for a in getattr(kind, "__args__", ()) if dataclasses.is_dataclass(a)]
+            if optional:
+                present = any(k.startswith(path + ".") for k in tree)
+                out[name] = build(optional[0], path + ".") if present else None
+            elif dataclasses.is_dataclass(kind):
+                out[name] = build(kind, path + ".")
+            else:
+                out[name] = torch.tensor(np.asarray(tree[path]), device=dev)
+        return cls(**out)
 
     return build(DistrictParams)
 
@@ -278,7 +464,16 @@ def initial_state(cfg: StaticConfig, params: DistrictParams,
     its base, capacity history truncated to nominal capacity —
     ``building.py:2526-2564``, ``energy_model.py:797-803,1237-1242``)."""
     dev = params.device
+    if cfg.has_evs:
+        ev_soc, ev_eff, ev_deg = (params.evs.battery.initial_soc.clone(),
+                                  params.evs.battery.efficiency.clone(),
+                                  params.evs.battery.capacity.clone())
+    else:
+        ev_soc, ev_eff, ev_deg = (torch.zeros(0, dtype=torch.float32, device=dev)
+                                  for _ in range(3))
     return EnvState(
+        ev_soc=ev_soc, ev_efficiency=ev_eff, ev_degraded_capacity=ev_deg,
+        wm_initiated=torch.zeros(cfg.n_washing_machines, dtype=torch.bool, device=dev),
         t=torch.tensor(0, dtype=torch.int32, device=dev),
         data_offset=torch.tensor(data_offset, dtype=torch.int32, device=dev),
         battery_soc=params.battery.initial_soc.clone(),

@@ -4,14 +4,14 @@ from the fresh step quantities (the reference computes rewards from
 i.e. from the just-written index-t values — ``citylearn.py:1022-1023``).
 
 Inputs are ``(D, B)`` tensors: district-level terms reduce over the last
-(building) axis. ComfortReward, SolarPenaltyAndComfortReward and the EV
-reward need the dynamics and EV blocks and raise here.
+(building) axis. ComfortReward and SolarPenaltyAndComfortReward need the
+dynamics blocks and raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -67,6 +67,87 @@ def _solar_penalty(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
             + term(x.battery_soc, x.battery_capacity))
 
 
+def segment_sum(x: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum ``x`` (D, C) into ``n`` segments of the last axis by ``index``
+    (C,) -> (D, n), as a product with the one-hot matrix of ``index``: the
+    order of each sum is fixed on every device (``index_add_`` on a CUDA
+    tensor adds in an order that changes from run to run)."""
+    onehot = (index.long()[:, None] == torch.arange(n, device=x.device)).to(x.dtype)
+    return x @ onehot
+
+
+class EVRewardInputs(NamedTuple):
+    """Per-charger (D, C) values for ``Electric_Vehicles_Reward_Function``
+    (reference ``reward_function.py:389-517``), all at index t."""
+    building_index: torch.Tensor          # (C,) int32
+    connected: torch.Tensor               # bool
+    last_charged_kwh: torch.Tensor        # past_charging_action_values_kwh[t]
+    soc_prev: torch.Tensor
+    soc_now: torch.Tensor
+    capacity: torch.Tensor                # EV model battery capacity
+    depth_of_discharge: torch.Tensor
+    required_soc: torch.Tensor
+    hours_until_departure: torch.Tensor
+    max_charging_power: torch.Tensor      # (C,)
+    max_discharging_power: torch.Tensor   # (C,)
+    violation_kwh: torch.Tensor           # (D, B) charging-constraint violations
+
+
+def _ev_reward(cfg: StaticConfig, x: RewardInputs, ev: EVRewardInputs) -> torch.Tensor:
+    """The EV reward *replaces* the MARL base with per-charger shaping —
+    the MARL value only scales the penalty via ``1/(1+|r|)``; buildings
+    without chargers receive 0 (``reward_function.py:413-445``). The
+    disconnected-charger 'no_car_charging' term is computed then discarded
+    by the reference's early ``continue`` (``reward_function.py:459-463``)
+    — reproduced by contributing nothing for disconnected chargers."""
+    (w_ncc, w_bl, w_imposs, w_under, w_close, w_sc, w_esp) = cfg.ev_reward_weights
+    marl = _marl(cfg, x)                       # (D, B)
+    if cfg.central_agent:
+        base = torch.sum(marl, dim=-1, keepdim=True)
+        mult_b = (1.0 / (1.0 + torch.abs(base))).expand_as(marl)
+    else:
+        mult_b = 1.0 / (1.0 + torch.abs(marl))
+    bidx = ev.building_index.long()
+    mult = mult_b[:, bidx]                     # (D, C)
+    zero = torch.zeros_like(mult)
+
+    net_b = x.net[:, bidx]
+    cap = ev.capacity
+    min_cap = (1.0 - ev.depth_of_discharge) * cap
+    last = ev.last_charged_kwh
+    current_energy = ev.soc_prev * cap + last
+    c_bl = torch.where((current_energy > cap) | (current_energy < min_cap), w_bl * mult, zero)
+
+    soc_diff = ev.soc_now - ev.required_soc
+    soc_diff_kwh = soc_diff * cap
+    hours = ev.hours_until_departure
+    mpc = ev.max_charging_power * hours
+    mpd = ev.max_discharging_power * hours
+    c_imposs = torch.where(soc_diff_kwh > mpc, w_imposs * mult, zero)
+    at_dep = hours == 0
+    c_under = torch.where(
+        at_dep & (-0.25 < soc_diff) & (soc_diff <= -0.10), 2 * w_under * mult,
+        torch.where(at_dep & (soc_diff <= -0.25), (w_under ** 2) * mult, zero))
+    c_close = torch.where(at_dep & (-0.10 < soc_diff) & (soc_diff <= 0.10),
+                          w_close * mult, zero)
+    c_close = c_close + torch.where(
+        torch.abs(soc_diff_kwh) <= torch.maximum(mpc, mpd),
+        w_close * mult * (1.0 / (hours + 0.1)), zero)
+    c_esp = torch.where((last > 0) & (net_b < 0), w_esp * mult,
+                        torch.where((last < 0) & (net_b < 0), -0.5 * w_esp * mult, zero))
+    c_sc = torch.where((last < 0) & (net_b > 0), w_sc * mult,
+                       torch.where((last > 0) & (net_b > 0), -0.5 * w_sc * mult, zero))
+
+    per_charger = torch.where(
+        ev.connected, c_bl + c_imposs + c_under + c_close + c_esp + c_sc, zero)
+    reward = segment_sum(per_charger, ev.building_index, x.net.shape[-1])
+    # charging-constraint violation penalty (reward_function.py:431-436)
+    reward = reward - torch.clamp(ev.violation_kwh, min=0.0) * cfg.charging_penalty_coefficient
+    if cfg.central_agent:
+        return torch.sum(reward, dim=-1, keepdim=True)
+    return reward
+
+
 def _marl_single(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
     """MARL under MultiBuildingRewardFunction: each building's function
     receives only that building's observation (``reward_function.py:96-103``),
@@ -92,9 +173,15 @@ def _dispatch(cfg: StaticConfig, x: RewardInputs,
     raise NotImplementedError(f"reward {cfg.reward_type}")
 
 
-def compute_reward(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
+def compute_reward(cfg: StaticConfig, x: RewardInputs,
+                   ev: Optional[EVRewardInputs] = None) -> torch.Tensor:
     """Dispatch on ``cfg.reward_type`` (or per-building on
     ``cfg.reward_per_building``); a central agent sums to shape (D, 1)."""
+    if cfg.reward_per_building is None \
+            and cfg.reward_type == "Electric_Vehicles_Reward_Function":
+        if ev is None:
+            raise ValueError("the EV reward needs the charger inputs of an EV district")
+        return _ev_reward(cfg, x, ev)
     if cfg.reward_per_building is not None:
         # MultiBuildingRewardFunction: group buildings sharing (type, attrs),
         # evaluate each group's function once over the full building axis,

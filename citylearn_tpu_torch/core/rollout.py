@@ -60,7 +60,9 @@ def rollout_scripted(cfg: StaticConfig, params: DistrictParams, states: EnvState
 def rollout_policy(cfg: StaticConfig, params: DistrictParams, states: EnvState,
                    n_steps: int, policy: Callable) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
     """Closed-loop rollout: ``policy(params, states) -> {name: (D, B)}``
-    computes each step's actions from the current states."""
+    computes each step's actions from the current states; on an EV
+    district the dict may also hold ``electric_vehicle_storage`` (D, C)
+    over the chargers and ``washing_machine`` (D, W) over the machines."""
     D = states.t.shape[0]
     reward_sum = torch.zeros((D, _n_reward(cfg)), dtype=torch.float32,
                              device=params.device)

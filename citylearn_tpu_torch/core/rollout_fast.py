@@ -3,7 +3,8 @@ open-loop plan as ONE whole-episode kernel launch in place of the
 stepped loop of :mod:`citylearn_tpu_torch.core.rollout` — battery+PV
 districts on :func:`citylearn_tpu_torch.ops.battery.battery_episode`,
 thermal-storage districts on
-:func:`citylearn_tpu_torch.ops.thermal.thermal_episode`.
+:func:`citylearn_tpu_torch.ops.thermal.thermal_episode`, EV districts on
+:func:`citylearn_tpu_torch.ops.ev.ev_episode`.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import numpy as np
 import torch
 
 from citylearn_tpu_torch import resolve_device
-from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
+from citylearn_tpu_torch.core.types import BatteryParams, DistrictParams, StaticConfig
 from citylearn_tpu_torch.ops.battery import battery_episode
+from citylearn_tpu_torch.ops.ev import MAX_LANES, ev_episode
 from citylearn_tpu_torch.ops.thermal import N_TROWS, thermal_episode
 
 THERMAL_KEYS = ("cooling_storage", "dhw_storage", "electrical_storage")
@@ -91,12 +93,12 @@ def _n_knots(curves_x) -> int:
     return n_knots
 
 
-def battery_tables(params: DistrictParams):
-    """The battery kernels' parameter rows and curves: ``bparams`` (8, B)
-    rows capacity, nominal_power, loss_coefficient, initial_soc,
+def battery_tables(bat: BatteryParams):
+    """The battery kernels' parameter rows and curves for the batteries
+    ``bat`` (the buildings', or the EVs'): ``bparams`` (8, B) rows
+    capacity, nominal_power, loss_coefficient, initial_soc,
     depth_of_discharge, capacity_loss_coefficient and two zero rows; the
     four curves knot-major (n_knots, B), trimmed by :func:`_n_knots`."""
-    bat = params.battery
     zero = torch.zeros_like(bat.capacity)
     n_knots = _n_knots((bat.power_efficiency_curve_x, bat.capacity_power_curve_x))
     bparams = torch.stack([bat.capacity, bat.nominal_power, bat.loss_coefficient,
@@ -121,7 +123,7 @@ def battery_episode_inputs(cfg: StaticConfig, params: DistrictParams,
     ser = params.series
     hours = ser.hour[off:off + S, 0].cpu().numpy()
     bat = params.battery
-    bparams, curves = battery_tables(params)
+    bparams, curves = battery_tables(params.battery)
     tile = lambda v: v.expand(n_districts, B).contiguous()
     return dict(
         actions=torch.tensor(expand_action_plan(action_table, hours, S, B),
@@ -176,7 +178,7 @@ def thermal_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_district
     plan = lambda k: torch.tensor(
         np.ascontiguousarray(expand_action_plan(action_tables[k], hours, S, B))
         if k in action_tables else np.zeros((S, B), np.float32), device=params.device)
-    bparams, curves = battery_tables(params)
+    bparams, curves = battery_tables(params.battery)
 
     # thermal parameter rows (ops/thermal.py row order)
     cd, dd = params.cooling_device, params.dhw_device
@@ -232,5 +234,175 @@ def run_thermal_episode(cfg: StaticConfig, params: DistrictParams,
         raise ValueError("configuration not eligible for the thermal fast path")
     params = params.to(resolve_device(device))
     return thermal_episode(**thermal_episode_inputs(
+        cfg, params, n_districts, action_tables, n_steps, data_offset),
+        record=record_series)
+
+
+def eligible_ev(cfg: StaticConfig) -> bool:
+    """Battery+PV buildings with EV chargers and washing machines (the
+    ``..._plus_evs`` and charging-constraints configurations): no thermal
+    end-uses, outage, dynamics or occupants. Charging constraints are
+    action-only math, precomputed host-side by the dispatcher
+    (scaled per-charger plans + violation streams).
+
+    central_agent is allowed — same reasoning as
+    :func:`eligible_thermal`: only reward aggregation and observation
+    layout change, not physics; kernel reward_sum stays per-building."""
+    return (cfg.has_evs and not cfg.any_cooling and not cfg.any_heating
+            and not cfg.any_dhw and not cfg.has_dynamics
+            and not cfg.any_outage and not cfg.has_occupant
+            and cfg.reward_per_building is None
+            and (cfg.reward_type == "Electric_Vehicles_Reward_Function"
+                 or (cfg.reward_type in _REWARD_OK
+                     and cfg.reward_exponent == 1.0)))
+
+
+def apply_charging_constraints_np(cfg: StaticConfig, params: DistrictParams, a: np.ndarray):
+    """Numpy replication of the building/phase charging-constraint
+    scaling (reference ``building.py:901-989``; core/step.py
+    ``_charging_constraints``) for an (S, C) open-loop charger plan —
+    constraints depend only on the ACTIONS and static limits, so the
+    kernel path precomputes the scaled plan and the per-building
+    violation kWh stream host-side. Returns (plan (S, C), violation
+    (S, B)), float32."""
+    ch = params.chargers
+    B = cfg.n_buildings
+    S, C = a.shape
+    maxc, bld, blim, pidx, plim, pbld = (x.cpu().numpy() for x in (
+        ch.max_charging_power, ch.building_index, ch.cc_building_limit,
+        ch.cc_phase_index, ch.cc_phase_limit, ch.cc_phase_building))
+    P = cfg.n_charging_phases
+    hours_ratio = cfg.seconds_per_time_step / 3600.0
+
+    pos = (a > 0.0) & (maxc > 0.0)[None, :]
+    req = np.where(pos, a * maxc[None, :], 0.0)
+    tot_b = np.zeros((S, B))
+    for c in range(C):
+        tot_b[:, bld[c]] += req[:, c]
+    over_b = np.isfinite(blim)[None, :] & (tot_b > blim[None, :])
+    scale_b = np.where(over_b,
+                       np.where(blim[None, :] == 0.0, 0.0,
+                                blim[None, :] / np.maximum(tot_b, 1e-12)), 1.0)
+    viol_b = np.where(over_b, tot_b - blim[None, :], 0.0)
+    scaled1 = req * scale_b[:, bld]
+    tot_p = np.zeros((S, P))
+    for c in range(C):
+        if pidx[c] >= 0:
+            tot_p[:, pidx[c]] += scaled1[:, c]
+    over_p = np.isfinite(plim)[None, :] & (tot_p > plim[None, :])
+    scale_p = np.where(over_p,
+                       np.where(plim[None, :] == 0.0, 0.0,
+                                plim[None, :] / np.maximum(tot_p, 1e-12)), 1.0)
+    viol_p = np.where(over_p, tot_p - plim[None, :], 0.0)
+    for pi in range(P):
+        viol_b[:, pbld[pi]] += viol_p[:, pi]
+    scale_p_full = np.concatenate([scale_p, np.ones((S, 1))], axis=1)
+    pidx_full = np.where(pidx >= 0, pidx, P)
+    target = scaled1 * scale_p_full[:, pidx_full]
+    a_out = np.where(
+        pos, np.maximum(0.0, np.minimum(a, target / np.maximum(maxc[None, :], 1e-12))),
+        np.where((a > 0.0) & (maxc <= 0.0)[None, :], 0.0, a))
+    return a_out.astype(np.float32), (viol_b * hours_ratio).astype(np.float32)
+
+
+def ev_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: int,
+                      action_tables: Dict[str, object], n_steps: Optional[int] = None,
+                      data_offset: int = 0) -> dict:
+    """Keyword arguments of :func:`citylearn_tpu_torch.ops.ev.ev_episode`
+    for ``n_districts`` fresh copies of the district under open-loop plans
+    (see :func:`run_ev_episode`), on the device of ``params``. Series of
+    the sim range follow ``data_offset``; charger, EV and machine
+    schedules are episode-relative and stay un-shifted, as on the stepped
+    path."""
+    S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
+    off = int(data_offset)
+    B = cfg.n_buildings
+    C, V, W = cfg.n_chargers, cfg.n_evs, cfg.n_washing_machines
+    if max(B, C, V, W) > MAX_LANES:
+        raise ValueError(f"the EV fast path takes up to {MAX_LANES} buildings, chargers, "
+                         f"EVs and machines, got {B}, {C}, {V}, {W}")
+    dev = params.device
+    ser, ch, evp = params.series, params.chargers, params.evs
+    f32 = lambda x: x.to(torch.float32)
+
+    def schedule(arr, fill):
+        """Rows [0, S) of an episode-relative schedule, ``fill`` past its end."""
+        out = torch.full((S,) + arr.shape[1:], fill, dtype=arr.dtype, device=dev)
+        out[:min(S, arr.shape[0])] = arr[:S]
+        return out
+
+    if cfg.has_washing_machines:
+        wmp = params.washing_machines
+        machines = (schedule(f32(wmp.wm_start), -1.0), schedule(f32(wmp.wm_end), -1.0),
+                    schedule(wmp.triggered_load, 0.0))
+        wm_bld = wmp.building_index
+    else:
+        machines = tuple(torch.zeros((S, 0), device=dev) for _ in range(3))
+        wm_bld = torch.zeros(0, dtype=torch.int32, device=dev)
+
+    hours = ser.hour[off:off + S, 0].cpu().numpy()
+    viol = np.zeros((S, B), np.float32)
+    actions = []
+    for key, n in (("electrical_storage", B), ("electric_vehicle_storage", C),
+                   ("washing_machine", W)):
+        plan = np.zeros((S, n), np.float32)
+        if action_tables.get(key) is not None and n > 0:
+            plan = expand_action_plan(action_tables[key], hours, S, n)
+            if key == "electric_vehicle_storage" and cfg.has_charging_constraints:
+                plan, viol = apply_charging_constraints_np(cfg, params, plan)
+        actions.append(torch.tensor(np.ascontiguousarray(plan), device=dev))
+
+    bat, eb = params.battery, evp.battery
+    bparams, curves = battery_tables(bat)
+    evparams, ev_curves = battery_tables(eb)
+    ch_knots = _n_knots((ch.charge_eff_x, ch.discharge_eff_x))
+    tile = lambda v: v.expand(n_districts, v.shape[0]).contiguous()
+    return dict(
+        actions=tuple(actions),
+        series=(*(_pad_time(x, S, off) for x in (
+            ser.non_shiftable_load, ser.solar_generation, ser.electricity_pricing,
+            ser.carbon_intensity)),
+            schedule(ch.connected_ev, -1), schedule(ch.required_soc, 0.0),
+            schedule(ch.departure_time, 0.0),
+            schedule(evp.force_soc, float("nan")), schedule(evp.drift_mult, float("nan")),
+            *machines),
+        bparams=bparams, curves=curves,
+        cparams=torch.stack([ch.max_charging_power, ch.min_charging_power,
+                             ch.max_discharging_power, ch.min_discharging_power]),
+        ch_curves=tuple(c.t()[:ch_knots].contiguous() for c in (
+            ch.charge_eff_x, ch.charge_eff_y, ch.discharge_eff_x, ch.discharge_eff_y)),
+        evparams=evparams, ev_curves=ev_curves,
+        ch_bld=ch.building_index, wm_bld=wm_bld,
+        state0=(tile(bat.initial_soc), tile(bat.efficiency), tile(bat.capacity),
+                tile(eb.initial_soc), tile(eb.efficiency), tile(eb.capacity),
+                torch.zeros((n_districts, W), device=dev)),
+        hours_ratio=cfg.seconds_per_time_step / 3600.0,
+        ratio=cfg.time_step_ratio,
+        ev_weights=tuple(cfg.ev_reward_weights),
+        use_ev_reward=cfg.reward_type == "Electric_Vehicles_Reward_Function",
+        viol=torch.tensor(viol, device=dev),
+        penalty_coefficient=float(cfg.charging_penalty_coefficient))
+
+
+def run_ev_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
+                   action_tables: Dict[str, object], n_steps: Optional[int] = None,
+                   record_series: bool = False, data_offset: int = 0, device=None):
+    """Whole-episode rollout on the EV kernel for ``n_districts``
+    identical district copies; ``action_tables``: open-loop plans per
+    action class — ``electrical_storage`` ((24,) | (S,) | (S, B) over
+    buildings), ``electric_vehicle_storage`` (... over the C chargers),
+    ``washing_machine`` (... over the W machines); missing keys act 0 —
+    on ``device`` (the CUDA card by default).
+
+    Returns (reward_sum, cost_sum, emission_sum, battery_soc, battery_eff,
+    battery_degraded, ev_soc, ev_eff, ev_degraded, wm_initiated) — the
+    first six (D, B), the EV triple (D, V), wm (D, W); with
+    ``record_series=True`` an (N_EREC, S, B) per-step stream of district
+    0 is appended (net, raw battery balance/soc, charger and washing-
+    machine consumptions, reward)."""
+    if not eligible_ev(cfg):
+        raise ValueError("configuration not eligible for the EV fast path")
+    params = params.to(resolve_device(device))
+    return ev_episode(**ev_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)

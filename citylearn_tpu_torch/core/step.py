@@ -3,12 +3,15 @@
 -> ``building.py:1500-1834`` -> ``energy_model.py``) for districts whose
 buildings hold cooling, heating and DHW end uses (heat pump or electric
 heater plus a storage tank each), a battery, PV and a non-shiftable
-load — the 2022 (battery+PV) and 2021 (thermal-storage) families.
-Power outage, LSTM dynamics, EVs, washing machines, occupants and the
-float64 parity mode raise ``NotImplementedError``.
+load — the 2022 (battery+PV) and 2021 (thermal-storage) families — plus
+the EV chargers, electric vehicles, washing machines and charging
+constraints of the ``plus_evs`` family. Power outage, LSTM dynamics,
+occupants and the float64 parity mode raise ``NotImplementedError``.
 
 Everything is elementwise over a ``(D, B)`` batch of districts and
-buildings.
+buildings; charger, EV and machine quantities are ``(D, C)``, ``(D, V)``
+and ``(D, W)``, and reach their buildings through fixed-order segment
+sums.
 
 Order semantics (reference ``building.py:1566-1632``): the priority list is
 reordered per building from the *signs* of the storage actions —
@@ -31,15 +34,23 @@ Observations, rewards and KPI series see these values.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from citylearn_tpu_torch.core import hvac
 from citylearn_tpu_torch.core.battery import battery_charge
-from citylearn_tpu_torch.core.reward import RewardInputs, compute_reward
+from citylearn_tpu_torch.core.curves import interp_linear
+from citylearn_tpu_torch.core.reward import (
+    EVRewardInputs,
+    RewardInputs,
+    compute_reward,
+    segment_sum,
+)
 from citylearn_tpu_torch.core.storage import tank_charge
 from citylearn_tpu_torch.core.types import (
+    BatteryParams,
     DistrictParams,
     EnvState,
     HVACParams,
@@ -49,19 +60,19 @@ from citylearn_tpu_torch.core.types import (
 )
 
 #: configuration flags of blocks this step does not carry
-_UNSUPPORTED = ("has_dynamics", "has_evs", "has_washing_machines", "has_occupant",
-                "any_outage", "has_stochastic_outage", "parity_f64")
+_UNSUPPORTED = ("has_dynamics", "has_occupant", "any_outage", "has_stochastic_outage",
+                "parity_f64")
 
 
 def check_supported(cfg: StaticConfig):
     """Raise ``NotImplementedError`` for a configuration outside the
-    battery+PV and thermal-storage districts."""
+    battery+PV, thermal-storage and EV districts."""
     on = [name for name in _UNSUPPORTED if getattr(cfg, name)]
     if on:
         raise NotImplementedError(
-            f"the PyTorch port steps battery+PV and thermal-storage districts "
-            f"(cooling, heating and DHW devices and tanks, battery, PV); this "
-            f"configuration sets {', '.join(on)}")
+            f"the PyTorch port steps battery+PV, thermal-storage and EV districts "
+            f"(cooling, heating and DHW devices and tanks, battery, PV, chargers, "
+            f"EVs, washing machines); this configuration sets {', '.join(on)}")
 
 
 class _ThermalResult(NamedTuple):
@@ -138,6 +149,171 @@ def _thermal_block(dev: HVACParams, tank: StorageTankParams, soc_prev: torch.Ten
             cons_accum + apply_cons)
 
 
+class _EVResult(NamedTuple):
+    chargers_consumption: torch.Tensor   # (D, B)
+    ev_soc: torch.Tensor                 # (D, V)
+    ev_efficiency: torch.Tensor
+    ev_degraded_capacity: torch.Tensor
+    violation_kwh: torch.Tensor          # (D, B)
+    building_headroom: torch.Tensor      # (D, B)
+    phase_headroom: torch.Tensor         # (D, P)
+    charger_consumption: torch.Tensor    # (D, C)
+    charger_energy: torch.Tensor         # (D, C) past_charging_action kWh
+    reward_inputs: Optional[EVRewardInputs]   # when the district uses the EV reward
+
+
+def _charging_constraints(cfg: StaticConfig, params: DistrictParams, a: torch.Tensor,
+                          hours_ratio: float) -> Tuple[torch.Tensor, ...]:
+    """Building then phase limits on the positive kW requests of a (D, C)
+    charger action (reference ``building.py:901-989``): requests over a
+    limit are scaled down to it and the excess is tracked in kWh. Returns
+    the scaled action, the violation (D, B) and the building (D, B) and
+    phase (D, P) headrooms."""
+    ch = params.chargers
+    B, P = cfg.n_buildings, cfg.n_charging_phases
+    maxc = ch.max_charging_power
+    zero = torch.zeros_like(a)
+    pos = (a > 0.0) & (maxc > 0.0)
+    req = torch.where(pos, a * maxc, zero)
+    over_scale = lambda over, lim, tot: torch.where(
+        over, torch.where(lim == 0.0, torch.zeros_like(tot),
+                          lim / torch.clamp(tot, min=1e-12)), torch.ones_like(tot))
+    tot_b = segment_sum(req, ch.building_index, B)
+    blim = ch.cc_building_limit
+    over_b = torch.isfinite(blim) & (tot_b > blim)
+    viol_b = torch.where(over_b, tot_b - blim, torch.zeros_like(tot_b))
+    bidx = ch.building_index.long()
+    scaled1 = req * over_scale(over_b, blim, tot_b)[:, bidx]
+    # chargers on no phase sum into a spare segment that has no limit
+    pidx = torch.where(ch.cc_phase_index >= 0, ch.cc_phase_index,
+                       torch.full_like(ch.cc_phase_index, P))
+    tot_p = segment_sum(scaled1, pidx, P + 1)[:, :P]
+    plim = ch.cc_phase_limit
+    over_p = torch.isfinite(plim) & (tot_p > plim)
+    viol_p = torch.where(over_p, tot_p - plim, torch.zeros_like(tot_p))
+    viol_b = viol_b + segment_sum(viol_p, ch.cc_phase_building, B)
+    scale_p = torch.cat([over_scale(over_p, plim, tot_p),
+                         torch.ones_like(tot_p[:, :1])], dim=1)
+    target = scaled1 * scale_p[:, pidx.long()]
+    a = torch.where(pos,
+                    torch.clamp(torch.minimum(a, target / torch.clamp(maxc, min=1e-12)),
+                                min=0.0),
+                    torch.where((a > 0.0) & (maxc <= 0.0), zero, a))
+    used_b = segment_sum(target, ch.building_index, B)
+    used_p = segment_sum(target, pidx, P + 1)[:, :P]
+    return (a, viol_b * hours_ratio,
+            torch.where(torch.isfinite(blim), blim - used_b, torch.zeros_like(used_b)),
+            torch.where(torch.isfinite(plim), plim - used_p, torch.zeros_like(used_p)))
+
+
+def _ev_block(cfg: StaticConfig, params: DistrictParams, state: EnvState,
+              a: torch.Tensor, hours_ratio: float) -> _EVResult:
+    """EV chargers (reference ``electric_vehicle_charger.py:283-329``) with
+    the offline SOC event tensors of ``compiler/events.py``; ``a`` is the
+    (D, C) ``electric_vehicle_storage`` action."""
+    ch, evp = params.chargers, params.evs
+    t = state.t.long()
+    is_t0 = (t == 0)[:, None]
+    force, drift = evp.force_soc[t], evp.drift_mult[t]          # (D, V), episode-relative
+    base = torch.where(is_t0, evp.battery.initial_soc, torch.zeros_like(state.ev_soc))
+    soc_evented = torch.where(
+        torch.isfinite(force), force,
+        torch.where(torch.isfinite(drift), torch.clamp(state.ev_soc * drift, 0.0, 1.0), base))
+    # Battery.charge reads soc[t-1], except at t == 0 where it reads the
+    # (possibly force-set) soc[0] (energy_model.py:662-666,1046-1047)
+    soc_read = torch.where(is_t0, soc_evented, state.ev_soc)
+
+    D = a.shape[0]
+    zeros_b = a.new_zeros((D, cfg.n_buildings))
+    violation, b_headroom = zeros_b, zeros_b
+    p_headroom = a.new_zeros((D, cfg.n_charging_phases))
+    if cfg.has_charging_constraints:
+        a, violation, b_headroom, p_headroom = _charging_constraints(cfg, params, a, hours_ratio)
+
+    zero = torch.zeros_like(a)
+    charging = a > 0.0
+    e_chg = torch.maximum(torch.minimum(a * ch.max_charging_power * hours_ratio,
+                                        ch.max_charging_power), ch.min_charging_power)
+    e_dis = torch.maximum(torch.minimum(a * ch.max_discharging_power * hours_ratio,
+                                        -ch.min_discharging_power), -ch.max_discharging_power)
+    energy = torch.where(charging, e_chg, e_dis)
+    # power-dependent efficiency interpolated at |action|
+    # (charger.py:252-281, 283-329); the packed curves are constant at
+    # the scalar efficiency when the schema sets none
+    eff = torch.where(charging,
+                      interp_linear(torch.abs(a), ch.charge_eff_x, ch.charge_eff_y),
+                      interp_linear(torch.abs(a), ch.discharge_eff_x, ch.discharge_eff_y))
+    energy_kwh = torch.where(charging, energy * eff, energy / eff)
+
+    conn = ch.connected_ev[t].long()                            # (D, C)
+    connected = conn >= 0
+    gidx = torch.clamp(conn, min=0)
+    of_ev = lambda leaf: leaf[gidx]                             # (V, ...) -> (D, C, ...)
+    at_charger = lambda x: torch.gather(x, 1, gidx)             # (D, V) -> (D, C)
+    bp_c = BatteryParams(**{f.name: of_ev(getattr(evp.battery, f.name))
+                            for f in dataclasses.fields(BatteryParams)})
+    # EV battery charge is called with energy_kwh directly — no
+    # _convert_energy_for_storage pre-division (charger.py:316)
+    res = battery_charge(bp_c, at_charger(soc_read), at_charger(state.ev_efficiency),
+                         at_charger(state.ev_degraded_capacity), energy_kwh, 1.0)
+    applied = (a != 0.0) & connected
+    balance = torch.where(applied, res.energy_balance, zero)
+    cons_c = torch.where(applied,
+                         torch.where(balance >= 0.0, balance / eff, balance * eff), zero)
+    # scatter only the applied charges: the others go to a spare column
+    # that is dropped (an EV at two chargers in one step is outside the
+    # data's contract; one of the two updates would win)
+    sidx = torch.where(applied, gidx, torch.full_like(gidx, cfg.n_evs))
+    scatter = lambda old, new: torch.cat([old, old[:, :1]], dim=1).scatter(
+        1, sidx, new)[:, :cfg.n_evs]
+    ev_soc = scatter(soc_evented, res.soc)
+    charger_energy = torch.where(a != 0.0, energy, zero)
+    reward_inputs = None
+    if cfg.reward_type == "Electric_Vehicles_Reward_Function":
+        reward_inputs = EVRewardInputs(
+            building_index=ch.building_index,
+            connected=connected,
+            last_charged_kwh=charger_energy,
+            soc_prev=torch.where(is_t0, of_ev(evp.battery.initial_soc),
+                                 at_charger(state.ev_soc)),
+            soc_now=at_charger(ev_soc),
+            capacity=of_ev(evp.battery.capacity),
+            depth_of_discharge=of_ev(evp.battery.depth_of_discharge),
+            required_soc=ch.required_soc[t],
+            hours_until_departure=ch.departure_time[t],
+            max_charging_power=ch.max_charging_power,
+            max_discharging_power=ch.max_discharging_power,
+            violation_kwh=violation)
+    return _EVResult(
+        chargers_consumption=segment_sum(cons_c, ch.building_index, cfg.n_buildings),
+        ev_soc=ev_soc,
+        ev_efficiency=scatter(state.ev_efficiency, res.efficiency),
+        ev_degraded_capacity=scatter(state.ev_degraded_capacity, res.degraded_capacity),
+        violation_kwh=violation, building_headroom=b_headroom, phase_headroom=p_headroom,
+        charger_consumption=cons_c, charger_energy=charger_energy,
+        reward_inputs=reward_inputs)
+
+
+def _washing_machines(cfg: StaticConfig, params: DistrictParams, state: EnvState,
+                      a_wm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Washing machines (reference ``energy_model.py:1289-1334``): a
+    positive action inside the start/end window triggers the whole load
+    once; a window that differs from the previous step's re-arms the
+    machine. Returns the consumption (D, B) and the carried flag (D, W)."""
+    wmp = params.washing_machines
+    t = state.t.long()
+    start, end = wmp.wm_start[t], wmp.wm_end[t]                 # (D, W)
+    prev = torch.clamp(t - 1, min=0)
+    changed = (t > 0)[:, None] & ((wmp.wm_start[prev] != start) | (wmp.wm_end[prev] != end))
+    initiated = state.wm_initiated & ~changed
+    tw = t[:, None]
+    trigger = (~initiated & (a_wm > 0.0) & (start != -1) & (end != -1)
+               & (start <= tw) & (tw <= end))
+    load = wmp.triggered_load[t]
+    cons_w = torch.where(trigger, load, torch.zeros_like(load))
+    return segment_sum(cons_w, wmp.building_index, cfg.n_buildings), initiated | trigger
+
+
 def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
                   actions: Dict[str, torch.Tensor]) -> Tuple[EnvState, StepOutput]:
     """Apply ``actions`` at the current step of a district batch and
@@ -146,8 +322,9 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     ``state`` carries a leading district axis ``D``; ``actions`` maps
     names to (D, B) tensors, of which this step reads
     ``electrical_storage``, ``cooling_storage``, ``heating_storage`` and
-    ``dhw_storage``; a missing or inactive action is 0.0 (reference
-    ``building.py:1561-1564``).
+    ``dhw_storage``, plus ``electric_vehicle_storage`` (D, C) over the
+    district's chargers and ``washing_machine`` (D, W) over its machines; a
+    missing or inactive action is 0.0 (reference ``building.py:1561-1564``).
     """
     check_supported(cfg)
     series = params.series
@@ -243,6 +420,28 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     else:
         bat = bat_early
 
+    # ---- EV chargers and washing machines ----
+    D = nsl.shape[0]
+    if cfg.has_evs:
+        a_ev = actions.get("electric_vehicle_storage")
+        if a_ev is None:
+            a_ev = nsl.new_zeros((D, cfg.n_chargers))
+        ev = _ev_block(cfg, params, state, a_ev, hours_ratio)
+    else:
+        ev = _EVResult(
+            chargers_consumption=zero, ev_soc=state.ev_soc,
+            ev_efficiency=state.ev_efficiency,
+            ev_degraded_capacity=state.ev_degraded_capacity,
+            violation_kwh=zero, building_headroom=zero,
+            phase_headroom=nsl.new_zeros((D, cfg.n_charging_phases)),
+            charger_consumption=None, charger_energy=None, reward_inputs=None)
+    wm_cons, wm_initiated = zero, state.wm_initiated
+    if cfg.has_washing_machines:
+        a_wm = actions.get("washing_machine")
+        if a_wm is None:
+            a_wm = nsl.new_zeros((D, cfg.n_washing_machines))
+        wm_cons, wm_initiated = _washing_machines(cfg, params, state, a_wm)
+
     # ---- update_variables accounting (building.py:2615-2703): the t == 0
     # branch re-adds demand-derived consumption
     uv_cool = (hvac.input_power(params.cooling_device, cool.device_output + cool.balance,
@@ -256,7 +455,8 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     nsl_total = nsl_met + t0(nsl + nsl_met)
     bat_total = bat.energy_balance + t0(bat.energy_balance)
     solar_neg = -solar_abs
-    net = cool_total + heat_total + dhw_total + nsl_total + bat_total + solar_neg
+    net = (cool_total + heat_total + dhw_total + nsl_total + bat_total + solar_neg
+           + ev.chargers_consumption + wm_cons)
     net = torch.where(outage, zero, net)
     cost = net * pricing
     emission = torch.clamp(net * carbon, min=0.0)
@@ -279,8 +479,12 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         cooling_storage_soc=cool.soc,
         heating_storage_soc=heat.soc,
         dhw_storage_soc=dhw.soc,
+        ev_soc=ev.ev_soc,
+        ev_efficiency=ev.ev_efficiency,
+        ev_degraded_capacity=ev.ev_degraded_capacity,
+        wm_initiated=wm_initiated,
     )
-    reward = compute_reward(cfg, RewardInputs(
+    reward = compute_reward(cfg, ev=ev.reward_inputs, x=RewardInputs(
         net=net, solar=solar_abs, battery_soc=bat.soc,
         cooling_storage_soc=cool.soc, heating_storage_soc=heat.soc,
         dhw_storage_soc=dhw.soc,
@@ -319,5 +523,13 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         indoor_temperature=at(series.indoor_dry_bulb_temperature),
         cooling_set_point=at(series.indoor_dry_bulb_temperature_cooling_set_point),
         heating_set_point=at(series.indoor_dry_bulb_temperature_heating_set_point),
+        chargers_consumption=ev.chargers_consumption,
+        washing_machines_consumption=wm_cons,
+        ev_soc=ev.ev_soc,
+        charging_violation_kwh=ev.violation_kwh,
+        charging_building_headroom=ev.building_headroom,
+        charging_phase_headroom=ev.phase_headroom,
+        charger_consumption=ev.charger_consumption,
+        charger_action_kwh=ev.charger_energy,
     )
     return new_state, out

@@ -29,9 +29,11 @@ def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
-    """A copy of ``tree`` with ``fn`` applied to every tensor leaf."""
+    """A copy of ``tree`` with ``fn`` applied to every tensor leaf (an
+    absent block or leaf stays ``None``)."""
     return dataclasses.replace(tree, **{
-        f.name: (map_tensors(fn, v) if dataclasses.is_dataclass(v) else fn(v))
+        f.name: (map_tensors(fn, v) if dataclasses.is_dataclass(v)
+                 else None if v is None else fn(v))
         for f in dataclasses.fields(tree)
         for v in (getattr(tree, f.name),)})
 
@@ -107,6 +109,58 @@ class SeriesData:
 
 
 @dataclasses.dataclass
+class ChargerParams:
+    """EV chargers stacked over a district-wide charger axis ``C``
+    (reference ``electric_vehicle_charger.py``); schedule tensors are
+    episode-relative ``(T, C)`` like the reference's un-windowed charger
+    data."""
+    efficiency: torch.Tensor              # (C,)
+    charge_eff_x: torch.Tensor            # (C, K) lookup knots at |action|
+    charge_eff_y: torch.Tensor            # (C, K)
+    discharge_eff_x: torch.Tensor         # (C, K)
+    discharge_eff_y: torch.Tensor         # (C, K)
+    max_charging_power: torch.Tensor
+    min_charging_power: torch.Tensor
+    max_discharging_power: torch.Tensor
+    min_discharging_power: torch.Tensor
+    building_index: torch.Tensor          # (C,) int32
+    connected_ev: torch.Tensor            # (T, C) int32, -1 when none
+    departure_time: torch.Tensor          # (T, C) float
+    required_soc: torch.Tensor            # (T, C)
+    capacity_kwh: torch.Tensor            # (T, C)
+    # charging constraints (reference building.py:764-994); +inf = no limit
+    cc_phase_index: torch.Tensor          # (C,) int32 district phase id, -1 none
+    cc_building_limit: torch.Tensor       # (B,) float
+    cc_phase_limit: torch.Tensor          # (P,) float
+    cc_phase_building: torch.Tensor       # (P,) int32
+
+
+@dataclasses.dataclass
+class EVParams:
+    """Electric vehicles stacked over ``V`` (reference
+    ``electric_vehicle.py``), plus the precompiled SOC event tensors
+    (see ``compiler/events.py``)."""
+    battery: BatteryParams                # (V,) leaves
+    force_soc: torch.Tensor               # (T, V) float, NaN = no event
+    drift_mult: torch.Tensor              # (T, V) float, NaN = no drift
+
+
+@dataclasses.dataclass
+class WashingMachineParams:
+    """Washing machines stacked over ``W`` (reference
+    ``energy_model.py:1244-1398``). ``triggered_load[t]`` is the full
+    truncated load-profile sum applied at the trigger step — the
+    reference's scatter loop adds every profile entry to the *current*
+    step (``energy_model.py:1327-1330``, the ``step`` variable is only
+    bounds-checked), a shipped quirk that collapses the cycle onto the
+    trigger step."""
+    building_index: torch.Tensor          # (W,) int32
+    wm_start: torch.Tensor                # (T, W) int32
+    wm_end: torch.Tensor
+    triggered_load: torch.Tensor          # (T, W) float
+
+
+@dataclasses.dataclass
 class DistrictParams:
     """Everything the district step and the trainer read, on one device."""
     series: SeriesData
@@ -121,6 +175,10 @@ class DistrictParams:
     # returned at sim-range row tau is obs_static[tau] (state-derived
     # columns read zero there; see core/params.DERIVED_ZERO_OBSERVATIONS)
     obs_static: torch.Tensor
+    # absent (None) on a district without chargers / washing machines
+    chargers: Optional[ChargerParams] = None
+    evs: Optional[EVParams] = None
+    washing_machines: Optional[WashingMachineParams] = None
 
     @property
     def device(self) -> torch.device:
@@ -140,7 +198,8 @@ class StaticConfig:
     seconds_per_time_step: float
     time_step_ratio: float
     simulate_power_outage: Tuple[bool, ...]   # per building
-    # blocks the JAX package carries and this port does not yet: a
+    # stochastic outage, the float64 parity mode, dynamics and occupants
+    # are blocks the JAX package carries and this port does not yet: a
     # configuration that sets any of them raises in core/step.py
     has_stochastic_outage: bool = False
     parity_f64: bool = False             # float64 reference-parity mode
@@ -192,6 +251,12 @@ class EnvState:
     cooling_storage_soc: torch.Tensor
     heating_storage_soc: torch.Tensor
     dhw_storage_soc: torch.Tensor
+    # EV and washing-machine carry, (V,) / (V,) / (V,) / (W,) per
+    # district; zero-sized when the district has none
+    ev_soc: torch.Tensor                  # soc[t-1] entering the step
+    ev_efficiency: torch.Tensor
+    ev_degraded_capacity: torch.Tensor
+    wm_initiated: torch.Tensor            # bool
 
     def to(self, device) -> "EnvState":
         return map_tensors(lambda x: x.to(device), self)
@@ -234,3 +299,14 @@ class StepOutput:
     indoor_temperature: torch.Tensor
     cooling_set_point: torch.Tensor
     heating_set_point: torch.Tensor
+    chargers_consumption: torch.Tensor           # (D, B)
+    washing_machines_consumption: torch.Tensor   # (D, B)
+    ev_soc: torch.Tensor                         # (D, V) soc at t after events + charges
+    charging_violation_kwh: torch.Tensor         # (D, B)
+    charging_building_headroom: torch.Tensor     # (D, B)
+    charging_phase_headroom: torch.Tensor        # (D, P)
+    # per-charger series (reference Charger.electricity_consumption /
+    # past_charging_action_values_kwh, electric_vehicle_charger.py:320-328);
+    # None on a district without chargers
+    charger_consumption: Optional[torch.Tensor] = None          # (D, C)
+    charger_action_kwh: Optional[torch.Tensor] = None           # (D, C)

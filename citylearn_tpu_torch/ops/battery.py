@@ -63,6 +63,16 @@ def battery_event(bparams: torch.Tensor, curves: Sequence[torch.Tensor],
     (D, B)), rounding every operation as ``csrc/battery_common.cuh``'s
     ``Battery::step`` does. Returns (soc, efficiency, degraded capacity,
     energy balance) after the event."""
+    return battery_event_energy(bparams, curves, soc, eff, deg,
+                                action * bparams[1] * hours_ratio, ratio)
+
+
+def battery_event_energy(bparams: torch.Tensor, curves: Sequence[torch.Tensor],
+                         soc: torch.Tensor, eff: torch.Tensor, deg: torch.Tensor,
+                         energy: torch.Tensor, ratio: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`battery_event` for a requested ``energy`` in kWh
+    (``csrc/battery_common.cuh``'s ``event``)."""
     pec_x, pec_y, cpc_x, cpc_y = curves
     cap, nominal = bparams[0], bparams[1]
     keep = 1.0 - bparams[2]
@@ -70,7 +80,6 @@ def battery_event(bparams: torch.Tensor, curves: Sequence[torch.Tensor],
     clc = bparams[5]
     cap_safe = torch.clamp(cap, min=ZERO)
     nominal_safe = torch.clamp(nominal, min=ZERO)
-    energy = action * nominal * hours_ratio
     energy_init = torch.clamp(soc * cap * keep, min=0.0)
     max_power = nominal * _interp(energy_init / cap_safe, cpc_x, cpc_y)
 

@@ -45,7 +45,7 @@ class CollectPrep(NamedTuple):
 def prepare_battery_collect(cfg: StaticConfig, params: DistrictParams) -> CollectPrep:
     """Pack the battery parameters and knot-major curves, with repeated
     tail knots trimmed, on the device of ``params``."""
-    bparams, curves = battery_tables(params)
+    bparams, curves = battery_tables(params.battery)
     return CollectPrep(bparams=bparams, curves=curves,
                        hours_ratio=float(cfg.seconds_per_time_step / 3600.0),
                        ratio=float(cfg.time_step_ratio))
