@@ -1,13 +1,13 @@
 """Schema compiler: ``schema.json`` + CSVs -> :class:`DistrictSpec`.
 
 The counterpart of ``citylearn_tpu.compiler.schema`` for the districts
-the port carries (battery+PV, thermal storage, and EV chargers with
-electric vehicles, washing machines and charging constraints): the same
-device resolution, series defaults, noise stream and observation/action
-surface, with CSVs read by the standard ``csv`` module instead of
-pandas. Schema blocks outside those districts raise
-``NotImplementedError`` naming the block: LSTM dynamics, occupants,
-autosizing and stochastic power outages. Missing HVAC devices and tanks
+the port carries (battery+PV, thermal storage, EV chargers with
+electric vehicles, washing machines and charging constraints, and LSTM
+temperature dynamics with power outages): the same device resolution,
+series defaults, noise stream and observation/action surface, with CSVs
+read by the standard ``csv`` module instead of pandas. Schema blocks
+outside those districts raise ``NotImplementedError`` naming the block:
+occupants and autosizing. Missing HVAC devices and tanks
 resolve to the same inert defaults as in the JAX package.
 """
 
@@ -34,6 +34,7 @@ from citylearn_tpu_torch.compiler.spec import (
     BuildingSpec,
     ChargerSpec,
     DistrictSpec,
+    DynamicsSpec,
     ElectricVehicleSpec,
     HVACDeviceSpec,
     StorageTankSpec,
@@ -245,6 +246,34 @@ def _series_from_energy_csv(df: Table, noise_std: float = 0.0,
     return out
 
 
+def _load_dynamics(block: dict, root: str) -> DynamicsSpec:
+    """Parse an LSTM dynamics block and load its ``.pth`` weights
+    (reference ``citylearn.py:2216-2227``, ``dynamics.py:112-127``)."""
+    import torch
+
+    attrs = dict(block["attributes"])
+    path = os.path.join(root, attrs["filename"])
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    sd = raw.get("model_state_dict", raw) if isinstance(raw, dict) else raw
+    num_layers = int(attrs["num_layers"])
+    spec = DynamicsSpec(
+        input_observation_names=list(attrs["input_observation_names"]),
+        norm_min=np.asarray(attrs["input_normalization_minimum"], np.float32),
+        norm_max=np.asarray(attrs["input_normalization_maximum"], np.float32),
+        hidden_size=int(attrs["hidden_size"]),
+        num_layers=num_layers,
+        lookback=int(attrs["lookback"]),
+    )
+    for l in range(num_layers):
+        spec.w_ih.append(sd[f"l_lstm.weight_ih_l{l}"].numpy().astype(np.float32))
+        spec.w_hh.append(sd[f"l_lstm.weight_hh_l{l}"].numpy().astype(np.float32))
+        spec.bias.append((sd[f"l_lstm.bias_ih_l{l}"] + sd[f"l_lstm.bias_hh_l{l}"])
+                         .numpy().astype(np.float32))
+    spec.lin_w = sd["l_linear.weight"].numpy().astype(np.float32).reshape(-1)
+    spec.lin_b = float(sd["l_linear.bias"].numpy().reshape(-1)[0])
+    return spec
+
+
 def _unsupported(block: str, building: str = None):
     where = f" (building {building})" if building else ""
     raise NotImplementedError(
@@ -430,16 +459,20 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
         # uses 'citylearn.citylearn.Building' (citylearn.py:2211)
         b_type = b_schema.get("type") or "citylearn.citylearn.Building"
         type_name = b_type.rsplit(".", 1)[-1]
+        dynamics = None
         if b_schema.get("dynamics") is not None:
-            _unsupported("dynamics", b_name)
+            if type_name not in ("LSTMDynamicsBuilding", "DynamicsBuilding",
+                                 "OccupantInteractionBuilding",
+                                 "LogisticRegressionOccupantInteractionBuilding"):
+                raise NotImplementedError(
+                    f"building type {b_type} with dynamics not yet supported")
+            dynamics = _load_dynamics(b_schema["dynamics"], root)
         if b_schema.get("occupant") is not None and type_name == \
                 "LogisticRegressionOccupantInteractionBuilding":
             _unsupported("occupant", b_name)
         power_outage_cfg = b_schema.get("power_outage") or {}
         simulate_outage = bool(power_outage_cfg.get("simulate_power_outage", False))
         stochastic_outage = bool(power_outage_cfg.get("stochastic_power_outage", False))
-        if simulate_outage and stochastic_outage:
-            _unsupported("power_outage.stochastic_power_outage", b_name)
 
         # --- data -------------------------------------------------------
         noise_std = float(b_schema.get("noise_std") or 0.0)
@@ -671,6 +704,7 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
             simulate_power_outage=simulate_outage,
             stochastic_power_outage=stochastic_outage,
             stochastic_power_outage_model=power_outage_cfg.get("stochastic_power_outage_model"),
+            dynamics=dynamics,
             chargers=chargers,
             washing_machines=washing_machines,
             charging_constraints=b_schema.get("charging_constraints"),

@@ -12,9 +12,10 @@ all-time peak; per-building electricity_consumption_total,
 zero_net_energy, carbon_emissions_total, cost_total, the discomfort
 9-tuple, one-minus-thermal-resilience and power-outage/annual normalized
 unserved energy. Baselines = ``without_storage[_and_partial_load][_and_pv]``
-counterfactuals (``building.py:308-476,2863-2933``); with no
-partial-load (dynamics) building in the district, the partial-load
-correction is zero and ``_and_partial_load`` equals its plain baseline.
+counterfactuals (``building.py:308-476,2863-2933``); the
+``_and_partial_load`` baselines add back the consumption that a
+dynamics building's partial-load control saved or spent against its
+ideal demand (zero without dynamics buildings).
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from citylearn_tpu_torch import resolve_device
-from citylearn_tpu_torch.core import kpi
+from citylearn_tpu_torch.core import hvac, kpi
 from citylearn_tpu_torch.core.params import initial_state
+from citylearn_tpu_torch.core.rollout_fast import lstm_packable
 from citylearn_tpu_torch.core.step import check_supported, district_step
 from citylearn_tpu_torch.core.types import DistrictParams, EnvState, StaticConfig, flatten
 
@@ -122,6 +124,27 @@ def kpi_table(cfg: StaticConfig, params: DistrictParams,
     extra = (ser.solar_generation[tau_end]                 # positive kWh
              if and_pv else torch.zeros_like(net_c[0]))[None]
     net_b = torch.cat([base, extra], dim=0)                # (S + 1, D, B)
+
+    # controlled demand over the full window; the final unwritten row reads
+    # as ideal demand fully met (building.py:2554-2558 prefill)
+    cool_ideal_w = win(ser.cooling_demand)
+    heat_ideal_w = win(ser.heating_demand)
+    cool_act = torch.cat([collected["cooling_demand_actual"], cool_ideal_w[-1:]])
+    heat_act = torch.cat([collected["heating_demand_actual"], heat_ideal_w[-1:]])
+    if "_and_partial_load" in baseline_condition:
+        # DynamicsBuilding counterfactual (building.py:2863-2933): add back
+        # the ideal-vs-partial consumption delta. Heating quirk: the
+        # reference evaluates the heat-pump input power at the *scalar*
+        # outdoor temperature of the final row for the whole series
+        # (building.py:2893-2897).
+        outdoor_w = win(ser.outdoor_dry_bulb_temperature)
+        heat_diff = heat_ideal_w - heat_act
+        net_b = net_b + hvac.input_power(params.cooling_device, cool_ideal_w - cool_act,
+                                         outdoor_w, False)
+        net_b = net_b + torch.where(
+            params.heating_device.is_heat_pump,
+            hvac.input_power(params.heating_device, heat_diff, outdoor_w[-1:], True),
+            heat_diff / params.dhw_device.efficiency)
     price_b = torch.cat([collected["pricing"], ser.electricity_pricing[tau_end][None]])
     carbon_b = torch.cat([collected["carbon"], ser.carbon_intensity[tau_end][None]])
     cost_b = net_b * price_b
@@ -145,12 +168,7 @@ def kpi_table(cfg: StaticConfig, params: DistrictParams,
     }
 
     # ---- thermal comfort + resilience (cost_function.py:224-388); these
-    # are raw (un-normalized) values like the host table. The final
-    # unwritten row reads as ideal demand fully met (building.py:2554-2558)
-    cool_ideal_w = win(ser.cooling_demand)
-    heat_ideal_w = win(ser.heating_demand)
-    cool_act = torch.cat([collected["cooling_demand_actual"], cool_ideal_w[-1:]])
-    heat_act = torch.cat([collected["heating_demand_actual"], heat_ideal_w[-1:]])
+    # are raw (un-normalized) values like the host table
     indoor = torch.cat([collected["indoor_t"],
                         win(ser.indoor_dry_bulb_temperature)[-1:]])
     csp = torch.cat([collected["cooling_sp"],
@@ -255,10 +273,15 @@ def evaluate_districts(cfg: StaticConfig, params: DistrictParams,
     params, states = params.to(dev), states.to(dev)
     D = states.t.shape[0]
     if isinstance(policy_fn, ScriptedPolicy):
-        if kernel_family(cfg) is not None and _is_fresh(cfg, params, states):
+        family = kernel_family(cfg)
+        off0 = int(states.data_offset[0])
+        if family == "lstm" and not lstm_packable(cfg, params):
+            family = None           # the stepped path serves an unpackable district
+        if off0 and cfg.has_stochastic_outage:
+            family = None           # needs a signal the caller rebaked; stepped path
+        if family is not None and _is_fresh(cfg, params, states):
             table = evaluate_scripted(cfg, params, policy_fn, n_steps,
-                                      baseline_condition,
-                                      data_offset=int(states.data_offset[0]),
+                                      baseline_condition, data_offset=off0,
                                       device=dev)
             return {k: v.expand((D,) + v.shape) for k, v in table.items()}
         S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)

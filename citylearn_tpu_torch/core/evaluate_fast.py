@@ -5,7 +5,8 @@ The reference's ``evaluate()`` (``citylearn.py:1136-1323``) consumes the
 per-step series the env accumulated while stepping. For a kernel-eligible
 district (battery+PV, the 2022 family; cooling and DHW storage plus
 battery, the 2021 family; battery+PV with EV chargers and washing
-machines, the plus_evs family) under an *open-loop* policy (hour-indexed
+machines, the plus_evs family; LSTM temperature dynamics with partial-load
+cooling and power outages, the 2023 family) under an *open-loop* policy (hour-indexed
 RBC tables or per-target per-step plans), the episode runs as ONE kernel
 launch recording district 0's per-step series (net, balances, SOCs,
 device outputs); every other KPI input is data-driven, so the recorded
@@ -31,6 +32,7 @@ from citylearn_tpu_torch.core.evaluate import kpi_table, window
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS
 from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
 from citylearn_tpu_torch.ops import ev as ev_ops
+from citylearn_tpu_torch.ops import lstm as lstm_ops
 from citylearn_tpu_torch.ops.thermal import R_BBAL, R_CBAL, R_COUT, R_DBAL, R_DOUT, R_NET
 
 #: non-building-axis action classes (per-charger / per-machine plans)
@@ -151,6 +153,8 @@ def kernel_family(cfg: StaticConfig) -> Optional[str]:
         return "battery"
     if rollout_fast.eligible_thermal(cfg):
         return "thermal"
+    if rollout_fast.eligible_lstm(cfg):
+        return "lstm"
     if rollout_fast.eligible_ev(cfg):
         return "ev"
     return None
@@ -180,6 +184,7 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch
         storage = _with_t0_double(rec[ev_ops.R_BBAL]) + rec[ev_ops.R_CHC]
         served = w(ser.non_shiftable_load)
     else:
+        # the thermal and the LSTM kernels name these rows alike
         net = rec[R_NET]
         # storage consumption: device input power of each tank balance
         # (building.py:414-464) plus the battery's
@@ -187,9 +192,11 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch
         storage = (hvac.input_power(params.cooling_device, rec[R_CBAL], outdoor, False)
                    + hvac.input_power(params.dhw_device, rec[R_DBAL], outdoor, True)
                    + _with_t0_double(rec[R_BBAL]))
+        # an outage may leave part of the non-shiftable load unmet
+        nsl_met = (rec[lstm_ops.R_NSLMET][:, None] if family == "lstm"
+                   else w(ser.non_shiftable_load))
         served = (rec[R_COUT] + torch.clamp(-rec[R_CBAL], min=0.0)
-                  + rec[R_DOUT] + torch.clamp(-rec[R_DBAL], min=0.0))[:, None] \
-            + w(ser.non_shiftable_load)
+                  + rec[R_DOUT] + torch.clamp(-rec[R_DBAL], min=0.0))[:, None] + nsl_met
     net = net[:, None]
     pricing = w(ser.electricity_pricing)
     carbon = w(ser.carbon_intensity)
@@ -201,10 +208,14 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch
         solar=-w(ser.solar_generation),
         pricing=pricing,
         carbon=carbon,
-        indoor_t=w(ser.indoor_dry_bulb_temperature),
+        # the LSTM kernel records the predicted temperature and the
+        # partial-load demand; elsewhere both are data
+        indoor_t=(rec[lstm_ops.R_TEMP][:, None] if family == "lstm"
+                  else w(ser.indoor_dry_bulb_temperature)),
         cooling_sp=w(ser.indoor_dry_bulb_temperature_cooling_set_point),
         heating_sp=w(ser.indoor_dry_bulb_temperature_heating_set_point),
-        cooling_demand_actual=w(ser.cooling_demand),
+        cooling_demand_actual=(rec[lstm_ops.R_CDEM][:, None] if family == "lstm"
+                               else w(ser.cooling_demand)),
         heating_demand_actual=w(ser.heating_demand),
         served=served,
     )
@@ -231,14 +242,24 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
 
     ``data_offset`` evaluates a shifted episode window [off, off + S) —
     the reference's rolling/random splits (``base.py:76-129``): input
-    series, hour tables and the KPI window all follow the offset."""
+    series, hour tables and the KPI window all follow the offset.
+    Stochastic-outage signals are baked for the default window only, so a
+    shifted window on such a dataset raises."""
     family = kernel_family(cfg)
     if family is None:
         raise ValueError("configuration is not kernel-eligible; use "
                          "evaluate_districts (stepped path) instead")
+    off = int(data_offset)
+    if off and cfg.has_stochastic_outage:
+        raise ValueError(
+            "shifted windows on a stochastic-outage dataset need the signal rebaked for "
+            "that window: pass params = rebake_outage(spec, cfg, params, data_offset) "
+            "(core/params.py) through evaluate_districts, or use its stepped path")
+    if family == "lstm" and not rollout_fast.lstm_packable(cfg, params):
+        raise ValueError("LSTM configuration not kernel-packable; use "
+                         "evaluate_districts (stepped path) instead")
     dev = resolve_device(device)
     params = params.to(dev)
-    off = int(data_offset)
     S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
     plans = policy.expanded(cfg, params, S, data_offset=off)
     if family == "battery":
@@ -246,6 +267,10 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
             cfg, params, n_districts or 1,
             plans.get("electrical_storage", np.zeros((S, cfg.n_buildings), np.float32)),
             n_steps=S, record_series=True, data_offset=off, device=dev)
+    elif family == "lstm":
+        out = rollout_fast.run_lstm_episode(
+            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
+            data_offset=off, device=dev)
     elif family == "ev":
         out = rollout_fast.run_ev_episode(
             cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,

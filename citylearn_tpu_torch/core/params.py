@@ -4,8 +4,8 @@ Data layout is time-major ``(T, B)`` so each step gathers one contiguous
 ``(B,)`` row per field (replaces the reference's per-step
 ``TimeSeriesData.__getattr__`` slicing, ``data.py:313``). The packed
 leaves equal those of the JAX package's ``pack`` for the battery+PV,
-thermal-storage and EV districts (its float64-parity provenance flags are
-not carried).
+thermal-storage, EV and LSTM-dynamics districts (its float64-parity
+provenance flags are not carried).
 """
 
 from __future__ import annotations
@@ -20,10 +20,12 @@ from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.compiler.events import resolve_ev_events
 from citylearn_tpu_torch.compiler.spaces import heat_pump_cop_np
 from citylearn_tpu_torch.compiler.spec import BuildingSpec, DistrictSpec
+from citylearn_tpu_torch.envs.outage import building_outage_signal
 from citylearn_tpu_torch.core.types import (
     BatteryParams,
     ChargerParams,
     DistrictParams,
+    DynamicsParams,
     EnvState,
     EVParams,
     HVACParams,
@@ -33,6 +35,8 @@ from citylearn_tpu_torch.core.types import (
     WashingMachineParams,
 )
 
+PERIODIC_MAX = {"hour": 24, "day_type": 7, "month": 12, "minutes": 60}
+DYNAMIC_CHANNELS = ("indoor_dry_bulb_temperature", "cooling_demand", "heating_demand")
 
 # Observation names whose returned-at-t value is state-derived and therefore
 # *zero* at any index the step has not written yet (the reference returns
@@ -86,8 +90,9 @@ def _obs_series(b: BuildingSpec, name: str, sl: slice) -> np.ndarray:
     if name in DERIVED_ZERO_OBSERVATIONS:
         return np.zeros(n, np.float32)
     if name == "power_outage":
-        # the compiler refuses stochastic outage signals
-        if b.simulate_power_outage:
+        # zeros unless the CSV signal is simulated (building.py:1458); a
+        # stochastic signal is resolved per episode and is not data
+        if b.simulate_power_outage and not b.stochastic_power_outage:
             return s["power_outage"][sl]
         return np.zeros(n, np.float32)
     if name == "solar_generation":
@@ -302,6 +307,89 @@ def _pack_evs(spec: DistrictSpec, episode_steps: int, t
     return chargers, evs, wms, cfg
 
 
+def _pack_dynamics(spec: DistrictSpec, sl: slice, t) -> Tuple[Tuple[DynamicsParams, ...], Dict]:
+    """Group buildings by identical LSTM shape/channels and stack each
+    group's weights + precomputed static input channels; ``t`` puts a
+    numpy array on the device. Also returns the ``StaticConfig`` fields
+    of the dynamics family (empty without dynamics)."""
+    members_of: Dict[tuple, List[int]] = {}
+    for bi, b in enumerate(spec.buildings):
+        if b.dynamics is not None:
+            d = b.dynamics
+            key = (tuple(d.input_observation_names), d.hidden_size, d.num_layers, d.lookback)
+            members_of.setdefault(key, []).append(bi)      # keeps building order
+    if not members_of:
+        return (), {}
+    if sum(len(m) for m in members_of.values()) != len(spec.buildings):
+        raise NotImplementedError("mixed dynamics/plain building districts not yet supported")
+    T = sl.stop - sl.start
+
+    def channel_series(b: BuildingSpec, name: str) -> np.ndarray:
+        for k, xmax in PERIODIC_MAX.items():
+            if name in (f"{k}_sin", f"{k}_cos"):
+                fn = np.sin if name.endswith("_sin") else np.cos
+                return fn(2 * np.pi * b.series[k][sl] / xmax).astype(np.float32)
+        if name in b.series:
+            return b.series[name][sl].astype(np.float32)
+        raise NotImplementedError(f"dynamics input channel {name}")
+
+    f32 = lambda arrs: t(np.stack(arrs).astype(np.float32))
+    packed, metas = [], []
+    for (names, H, L, lookback), members in members_of.items():
+        ds = [spec.buildings[bi].dynamics for bi in members]
+        static = np.zeros((T, len(members), len(names)), np.float32)
+        for gi, (bi, d) in enumerate(zip(members, ds)):
+            for fi, name in enumerate(names):
+                if name not in DYNAMIC_CHANNELS:
+                    lo, hi = d.norm_min[fi], d.norm_max[fi]
+                    static[:, gi, fi] = (channel_series(spec.buildings[bi], name) - lo) / (hi - lo)
+        active = lambda action: t(np.asarray(
+            [action in spec.buildings[bi].active_actions for bi in members]))
+        packed.append(DynamicsParams(
+            member_indices=t(np.asarray(members, np.int32)),
+            w_ih=tuple(f32([d.w_ih[l] for d in ds]) for l in range(L)),
+            w_hh=tuple(f32([d.w_hh[l] for d in ds]) for l in range(L)),
+            bias=tuple(f32([d.bias[l] for d in ds]) for l in range(L)),
+            lin_w=f32([d.lin_w for d in ds]),
+            lin_b=t(np.asarray([d.lin_b for d in ds], np.float32)),
+            norm_min=f32([d.norm_min for d in ds]),
+            norm_max=f32([d.norm_max for d in ds]),
+            static_channels=t(static),
+            cooling_device_active=active("cooling_device"),
+            heating_device_active=active("heating_device"),
+            cooling_or_heating_active=active("cooling_or_heating_device")))
+        channel = lambda name: names.index(name) if name in names else -1
+        metas.append((lookback, L, H, len(names), names.index("indoor_dry_bulb_temperature"),
+                      channel("cooling_demand"), channel("heating_demand")))
+    return tuple(packed), dict(has_dynamics=True, dyn_groups=tuple(metas),
+                               max_lookback=max(m[0] for m in metas))
+
+
+def rebake_outage(spec: DistrictSpec, cfg: StaticConfig, params: DistrictParams,
+                  data_offset: int) -> DistrictParams:
+    """Re-bake stochastic-outage signals for the episode window starting
+    at sim-range row ``data_offset`` (:func:`pack` bakes rows
+    [0, episode_steps) only). Returns params with the signal written at
+    rows [data_offset, data_offset + episode_steps); CSV-driven outage
+    columns are untouched (they are sim-range data already)."""
+    off = int(data_offset)
+    if not cfg.has_stochastic_outage or off == 0:
+        return params
+    ep_steps = _episode_steps(spec)
+    full = params.series.power_outage.cpu().numpy().copy()
+    for bi, b in enumerate(spec.buildings):
+        if not (b.simulate_power_outage and b.stochastic_power_outage):
+            continue
+        start = spec.simulation_start_time_step + off
+        sig = building_outage_signal(b, ep_steps, spec.seconds_per_time_step,
+                                     slice(start, start + ep_steps))
+        full[:, bi] = 0.0
+        n = min(ep_steps, full.shape[0] - off)
+        full[off:off + n, bi] = sig[:n]
+    return dataclasses.replace(params, series=dataclasses.replace(
+        params.series, power_outage=torch.as_tensor(full, device=params.device)))
+
+
 def _episode_steps(spec: DistrictSpec) -> int:
     steps = spec.episode_time_steps
     if steps is None:
@@ -369,9 +457,24 @@ def pack(spec: DistrictSpec, device=None
     solar = np.stack(
         [b.pv_nominal_power * b.series["solar_generation"][sl] / 1000.0
          for b in spec.buildings], axis=1).astype(np.float32)
-    outage = np.stack([b.series["power_outage"][sl] if b.simulate_power_outage
-                       else np.zeros_like(b.series["power_outage"][sl])
-                       for b in spec.buildings], axis=1).astype(np.float32)
+    # Outage signals: data-driven from the CSV; a stochastic model resolves
+    # deterministically per reset in the reference (a fresh
+    # RandomState(seed) each time, building.py:2566-2594), so the signal of
+    # the default window is baked here (see rebake_outage for the others)
+    ep_steps = _episode_steps(spec)
+    outage_cols = []
+    for b in spec.buildings:
+        if b.simulate_power_outage and b.stochastic_power_outage:
+            start = spec.simulation_start_time_step
+            col = np.zeros(spec.simulation_time_steps, np.float32)
+            col[:ep_steps] = building_outage_signal(
+                b, ep_steps, spec.seconds_per_time_step, slice(start, start + ep_steps))
+            outage_cols.append(col)
+        elif b.simulate_power_outage:
+            outage_cols.append(b.series["power_outage"][sl])
+        else:
+            outage_cols.append(np.zeros_like(b.series["power_outage"][sl]))
+    outage = np.stack(outage_cols, axis=1).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=dev)
 
     series = SeriesData(
@@ -402,21 +505,29 @@ def pack(spec: DistrictSpec, device=None
         return cls(**{k: t(v if v.dtype == bool else v.astype(np.float32))
                       for k, v in vals.items()})
 
-    chargers, evs, wms, ev_cfg = _pack_evs(spec, _episode_steps(spec), t)
+    chargers, evs, wms, ev_cfg = _pack_evs(spec, ep_steps, t)
+    dynamics, dyn_cfg = _pack_dynamics(spec, sl, t)
+    # a dynamics district always steps the cooling and heating blocks
+    has_dynamics = bool(dyn_cfg)
     cfg = StaticConfig(
         n_buildings=spec.n_buildings,
-        time_steps=_episode_steps(spec),
+        time_steps=ep_steps,
         central_agent=spec.central_agent,
         seconds_per_time_step=spec.seconds_per_time_step,
         time_step_ratio=spec.time_step_ratio,
         simulate_power_outage=tuple(b.simulate_power_outage for b in spec.buildings),
-        any_cooling=any(float(b.series["cooling_demand"][sl].max()) > 0
-                        or b.cooling_storage.capacity > 0 for b in spec.buildings),
-        any_heating=any(float(b.series["heating_demand"][sl].max()) > 0
-                        or b.heating_storage.capacity > 0 for b in spec.buildings),
+        has_stochastic_outage=any(b.simulate_power_outage and b.stochastic_power_outage
+                                  for b in spec.buildings),
+        any_cooling=has_dynamics or any(
+            float(b.series["cooling_demand"][sl].max()) > 0
+            or b.cooling_storage.capacity > 0 for b in spec.buildings),
+        any_heating=has_dynamics or any(
+            float(b.series["heating_demand"][sl].max()) > 0
+            or b.heating_storage.capacity > 0 for b in spec.buildings),
         any_dhw=any(float(b.series["dhw_demand"][sl].max()) > 0
                     or b.dhw_storage.capacity > 0 for b in spec.buildings),
         **_reward_config(spec),
+        **dyn_cfg,
         **ev_cfg,
     )
     layout = build_obs_layout(spec)
@@ -427,7 +538,7 @@ def pack(spec: DistrictSpec, device=None
         **{name: block(StorageTankParams, name)
            for name in ("cooling_storage", "heating_storage", "dhw_storage")},
         obs_static=t(_obs_static(spec, layout)),
-        chargers=chargers, evs=evs, washing_machines=wms)
+        dynamics=dynamics, chargers=chargers, evs=evs, washing_machines=wms)
     return cfg, params, layout
 
 
@@ -437,23 +548,33 @@ def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> DistrictParam
     carried across as numpy arrays. Keys the port does not read (the
     float64-parity provenance flags) are ignored; a missing key raises
     ``KeyError``, except that a charger, EV or washing-machine block with
-    no key at all is absent (``None``), as on a district without them."""
+    no key at all is absent (``None``), as on a district without them;
+    the dynamics groups and their per-layer weights are keyed by index
+    (``"dynamics.0.w_ih.1"``)."""
     dev = resolve_device(device)
 
     def build(cls, prefix=""):
         out = {}
         for name, kind in get_type_hints(cls).items():
             path = f"{prefix}{name}"
-            optional = [a for a in getattr(kind, "__args__", ()) if dataclasses.is_dataclass(a)]
-            if optional:
+            args = getattr(kind, "__args__", ())
+            nested = [a for a in args if dataclasses.is_dataclass(a)]
+            if getattr(kind, "__origin__", None) is tuple:
+                # a tuple of blocks or of tensors, keyed by index
+                member = (lambda p: build(nested[0], p + ".")) if nested else leaf
+                n = len({k[len(path) + 1:].split(".")[0] for k in tree
+                         if k.startswith(path + ".")})
+                out[name] = tuple(member(f"{path}.{i}") for i in range(n))
+            elif nested:
                 present = any(k.startswith(path + ".") for k in tree)
-                out[name] = build(optional[0], path + ".") if present else None
+                out[name] = build(nested[0], path + ".") if present else None
             elif dataclasses.is_dataclass(kind):
                 out[name] = build(kind, path + ".")
             else:
-                out[name] = torch.tensor(np.asarray(tree[path]), device=dev)
+                out[name] = leaf(path)
         return cls(**out)
 
+    leaf = lambda path: torch.tensor(np.asarray(tree[path]), device=dev)
     return build(DistrictParams)
 
 
@@ -471,7 +592,14 @@ def initial_state(cfg: StaticConfig, params: DistrictParams,
     else:
         ev_soc, ev_eff, ev_deg = (torch.zeros(0, dtype=torch.float32, device=dev)
                                   for _ in range(3))
+    lstm_h, dyn_input = [], []
+    for (lookback, L, H, F, *_), dyn in zip(cfg.dyn_groups, params.dynamics):
+        Bg = dyn.member_indices.shape[0]
+        lstm_h.append(torch.zeros((L, Bg, H), dtype=torch.float32, device=dev))
+        dyn_input.append(torch.zeros((Bg, F, lookback + 1), dtype=torch.float32, device=dev))
     return EnvState(
+        lstm_h=tuple(lstm_h), lstm_c=tuple(torch.zeros_like(h) for h in lstm_h),
+        dyn_input=tuple(dyn_input),
         ev_soc=ev_soc, ev_efficiency=ev_eff, ev_degraded_capacity=ev_deg,
         wm_initiated=torch.zeros(cfg.n_washing_machines, dtype=torch.bool, device=dev),
         t=torch.tensor(0, dtype=torch.int32, device=dev),

@@ -4,8 +4,7 @@ from the fresh step quantities (the reference computes rewards from
 i.e. from the just-written index-t values — ``citylearn.py:1022-1023``).
 
 Inputs are ``(D, B)`` tensors: district-level terms reduce over the last
-(building) axis. ComfortReward and SolarPenaltyAndComfortReward need the
-dynamics blocks and raise here.
+(building) axis.
 """
 
 from __future__ import annotations
@@ -33,6 +32,14 @@ class RewardInputs(NamedTuple):
     cooling_storage_capacity: torch.Tensor
     heating_storage_capacity: torch.Tensor
     dhw_storage_capacity: torch.Tensor
+    # read by the comfort rewards only
+    indoor_temperature: Optional[torch.Tensor] = None
+    hvac_mode: Optional[torch.Tensor] = None          # int
+    cooling_set_point: Optional[torch.Tensor] = None
+    heating_set_point: Optional[torch.Tensor] = None
+    comfort_band: Optional[torch.Tensor] = None
+    cooling_demand: Optional[torch.Tensor] = None     # fresh demand observation
+    heating_demand: Optional[torch.Tensor] = None
 
 
 def _default(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
@@ -65,6 +72,43 @@ def _solar_penalty(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
             + term(x.heating_storage_soc, x.heating_storage_capacity)
             + term(x.dhw_storage_soc, x.dhw_storage_capacity)
             + term(x.battery_soc, x.battery_capacity))
+
+
+def _comfort(cfg: StaticConfig, x: RewardInputs) -> torch.Tensor:
+    """ComfortReward (reward_function.py:216-340) vectorized."""
+    T = x.indoor_temperature
+    band = (x.comfort_band if cfg.reward_band is None
+            else torch.full_like(T, cfg.reward_band))
+    zero = torch.zeros_like(T)
+    lo_e, hi_e = (torch.full_like(T, e) for e in (cfg.reward_lower_exponent,
+                                                  cfg.reward_higher_exponent))
+    heating = x.heating_demand > x.cooling_demand
+    mode = x.hvac_mode
+
+    # --- single-setpoint branch (mode 1 cooling / 2 heating) ---
+    sp = torch.where(mode == 1, x.cooling_set_point, x.heating_set_point)
+    delta = torch.abs(T - sp)
+    exp_below = torch.where(mode == 2, lo_e, hi_e)
+    exp_above = torch.where(heating, hi_e, lo_e)
+    r_single = torch.where(
+        T < sp - band, -(delta ** exp_below),
+        torch.where(T < sp, torch.where(heating, zero, -delta),
+                    torch.where(T <= sp + band, torch.where(heating, -delta, zero),
+                                -(delta ** exp_above))))
+
+    # --- dual-setpoint dead-band branch (mode 0 off / 3 auto) ---
+    csp, hsp = x.cooling_set_point, x.heating_set_point
+    cd = torch.abs(T - csp)
+    hd = torch.abs(T - hsp)
+    exp_cold = torch.where(heating, lo_e, hi_e)
+    exp_hot = torch.where(heating, hi_e, lo_e)
+    r_dual = torch.where(
+        T < hsp - band, -(hd ** exp_cold),
+        torch.where(T < hsp, -hd,
+                    torch.where(T <= csp, zero,
+                                torch.where(T < csp + band, -cd, -(cd ** exp_hot)))))
+
+    return torch.where((mode == 1) | (mode == 2), r_single, r_dual)
 
 
 def segment_sum(x: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
@@ -161,11 +205,15 @@ _REGISTRY = {
     "IndependentSACReward": _independent_sac,
     "MARL": _marl,
     "SolarPenaltyReward": _solar_penalty,
+    "ComfortReward": _comfort,
 }
 
 
 def _dispatch(cfg: StaticConfig, x: RewardInputs,
               single_building: bool = False) -> torch.Tensor:
+    if cfg.reward_type == "SolarPenaltyAndComfortReward":
+        c = cfg.reward_coefficients
+        return c[0] * _solar_penalty(cfg, x) + c[1] * _comfort(cfg, x)
     if single_building and cfg.reward_type == "MARL":
         return _marl_single(cfg, x)
     if cfg.reward_type in _REGISTRY:

@@ -98,10 +98,23 @@ def rollout_districts(cfg: StaticConfig, params: DistrictParams,
 
 def batched_initial_states(cfg: StaticConfig, params: DistrictParams,
                            n_districts: int, data_offset: int = 0,
-                           device=None) -> EnvState:
+                           device=None, outage_rebaked: bool = False) -> EnvState:
     """(D, ...) stacked initial states on ``device`` (the CUDA card by
-    default)."""
+    default).
+
+    Stochastic-outage datasets bake their signal for the default episode
+    window only (rows [0, episode_steps) of the sim range); for a shifted
+    window, rebake first with
+    :func:`citylearn_tpu_torch.core.params.rebake_outage` and pass
+    ``outage_rebaked=True``; without it a nonzero offset would silently
+    read all-zero outage signals and is rejected."""
     check_supported(cfg)
+    if cfg.has_stochastic_outage and data_offset != 0 and not outage_rebaked:
+        raise ValueError(
+            "batched rollouts of stochastic-outage datasets at a shifted "
+            "window need the signal rebaked for that window: params = "
+            "rebake_outage(spec, cfg, params, data_offset) "
+            "(core/params.py), then pass outage_rebaked=True")
     dev = resolve_device(device)
     s = initial_state(cfg, params.to(dev), data_offset)
     return map_tensors(

@@ -4,7 +4,8 @@ stepped loop of :mod:`citylearn_tpu_torch.core.rollout` — battery+PV
 districts on :func:`citylearn_tpu_torch.ops.battery.battery_episode`,
 thermal-storage districts on
 :func:`citylearn_tpu_torch.ops.thermal.thermal_episode`, EV districts on
-:func:`citylearn_tpu_torch.ops.ev.ev_episode`.
+:func:`citylearn_tpu_torch.ops.ev.ev_episode`, LSTM-dynamics districts on
+:func:`citylearn_tpu_torch.ops.lstm.lstm_episode`.
 """
 
 from __future__ import annotations
@@ -18,9 +19,22 @@ from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.core.types import BatteryParams, DistrictParams, StaticConfig
 from citylearn_tpu_torch.ops.battery import battery_episode
 from citylearn_tpu_torch.ops.ev import MAX_LANES, ev_episode
+from citylearn_tpu_torch.ops.lstm import (
+    L_COOL_ACTIVE,
+    L_LIN_B,
+    L_NMIN_CC,
+    L_NMIN_TC,
+    L_NSPAN_CC,
+    L_NSPAN_TC,
+    N_LROWS,
+    lstm_episode,
+    pack_weights,
+    pad4,
+)
 from citylearn_tpu_torch.ops.thermal import N_TROWS, thermal_episode
 
 THERMAL_KEYS = ("cooling_storage", "dhw_storage", "electrical_storage")
+LSTM_KEYS = ("cooling_device",) + THERMAL_KEYS
 _REWARD_OK = ("RewardFunction", "IndependentSACReward")
 # IndependentSACReward min(-net, 0) == -max(net, 0) == the default reward
 # at exponent 1 (reward_function.py:65-88,159-168)
@@ -163,6 +177,27 @@ def run_battery_episode(cfg: StaticConfig, params: DistrictParams,
         record=record_series)
 
 
+def thermal_rows(params: DistrictParams) -> torch.Tensor:
+    """The thermal kernels' parameter rows (N_TROWS, B), in
+    ``ops/thermal.py``'s row order."""
+    cd, dd = params.cooling_device, params.dhw_device
+    ct, dt = params.cooling_storage, params.dhw_storage
+    rows = [
+        cd.nominal_power, cd.efficiency, cd.target_cooling_temperature,
+        cd.is_heat_pump.to(torch.float32),
+        dd.nominal_power, dd.efficiency, dd.target_heating_temperature,
+        dd.is_heat_pump.to(torch.float32),
+        ct.capacity, torch.sqrt(ct.efficiency), ct.loss_coefficient,
+        ct.max_input_power, ct.max_output_power,
+        ct.capacity,                               # cooling converts by itself
+        dt.capacity, torch.sqrt(dt.efficiency), dt.loss_coefficient,
+        dt.max_input_power, dt.max_output_power,
+        params.heating_storage.capacity,           # dhw quirk: building.py:1765
+    ]
+    assert len(rows) == N_TROWS
+    return torch.stack(rows)
+
+
 def thermal_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: int,
                            action_tables: Dict[str, object],
                            n_steps: Optional[int] = None, data_offset: int = 0) -> dict:
@@ -180,22 +215,7 @@ def thermal_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_district
         if k in action_tables else np.zeros((S, B), np.float32), device=params.device)
     bparams, curves = battery_tables(params.battery)
 
-    # thermal parameter rows (ops/thermal.py row order)
-    cd, dd = params.cooling_device, params.dhw_device
     ct, dt = params.cooling_storage, params.dhw_storage
-    rows = [
-        cd.nominal_power, cd.efficiency, cd.target_cooling_temperature,
-        cd.is_heat_pump.to(torch.float32),
-        dd.nominal_power, dd.efficiency, dd.target_heating_temperature,
-        dd.is_heat_pump.to(torch.float32),
-        ct.capacity, torch.sqrt(ct.efficiency), ct.loss_coefficient,
-        ct.max_input_power, ct.max_output_power,
-        ct.capacity,                               # cooling converts by itself
-        dt.capacity, torch.sqrt(dt.efficiency), dt.loss_coefficient,
-        dt.max_input_power, dt.max_output_power,
-        params.heating_storage.capacity,           # dhw quirk: building.py:1765
-    ]
-    assert len(rows) == N_TROWS
     bat = params.battery
     tile = lambda v: v.expand(n_districts, B).contiguous()
     return dict(
@@ -206,7 +226,7 @@ def thermal_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_district
             ser.outdoor_dry_bulb_temperature)),
         bparams=bparams,
         curves=curves,
-        tparams=torch.stack(rows),
+        tparams=thermal_rows(params),
         csoc0=tile(ct.initial_soc), dsoc0=tile(dt.initial_soc),
         soc0=tile(bat.initial_soc), eff0=tile(bat.efficiency), deg0=tile(bat.capacity),
         hours_ratio=cfg.seconds_per_time_step / 3600.0,
@@ -404,5 +424,155 @@ def run_ev_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
         raise ValueError("configuration not eligible for the EV fast path")
     params = params.to(resolve_device(device))
     return ev_episode(**ev_episode_inputs(
+        cfg, params, n_districts, action_tables, n_steps, data_offset),
+        record=record_series)
+
+
+def eligible_lstm(cfg: StaticConfig) -> bool:
+    """LSTM-dynamics districts (the 2023 challenge family): dynamics
+    groups, cooling-device partial load, DHW + battery, ComfortReward,
+    with or without power outages; no EVs/WMs/occupants. Data-level
+    conditions (every building in a group, one or two LSTM layers, a shared
+    lookback, inert heating) are checked by :func:`lstm_packable`.
+
+    central_agent is allowed: it only changes the reward's aggregation and
+    the observation layout, not the physics; the kernel's reward sum stays
+    per building."""
+    return (cfg.has_dynamics and len(cfg.dyn_groups) >= 1
+            and not cfg.has_occupant and not cfg.has_evs
+            and not cfg.has_washing_machines
+            and not cfg.has_charging_constraints
+            and cfg.reward_per_building is None
+            and cfg.reward_type == "ComfortReward")
+
+
+def _lstm_units(cfg: StaticConfig, params: DistrictParams):
+    """Per building: its dynamics group, its row in the group and the
+    group's static meta (layers, hidden size, channels, temperature,
+    cooling and heating channel, lookback)."""
+    units = [None] * cfg.n_buildings
+    for g, (meta, dyn) in enumerate(zip(cfg.dyn_groups, params.dynamics)):
+        lookback, L, H, F, tc, cc, hc = meta
+        for row, b in enumerate(dyn.member_indices.cpu().numpy()):
+            units[int(b)] = dict(g=g, row=row, L=int(L), H=int(H), F=int(F), tc=int(tc),
+                                 cc=int(cc), hc=int(hc), lookback=int(lookback))
+    return units
+
+
+def lstm_packable(cfg: StaticConfig, params: DistrictParams) -> bool:
+    """Data-level eligibility for the LSTM kernel: every building covered
+    by some group, layer counts 1-2, shared lookback, no heating-side
+    dynamics, inert heating end use. The sums of channel and hidden widths
+    are held to 128 as the JAX package's lane tiles hold them, so that a
+    configuration takes the same path in both packages; the kernel's own
+    limits are per building and raise in :func:`ops.lstm.lstm_episode`."""
+    if not eligible_lstm(cfg):
+        return False
+    covered = np.concatenate([d.member_indices.cpu().numpy() for d in params.dynamics])
+    if not np.array_equal(np.sort(covered), np.arange(cfg.n_buildings)):
+        return False
+    units = _lstm_units(cfg, params)
+    if len({u["lookback"] for u in units}) != 1 \
+            or sum(u["F"] for u in units) > 128 or sum(u["H"] for u in units) > 128:
+        return False
+    if any(u["L"] not in (1, 2) or u["cc"] < 0 or u["hc"] >= 0 for u in units):
+        return False
+    if any(bool(d.heating_device_active.any()) or bool(d.cooling_or_heating_active.any())
+           for d in params.dynamics):
+        return False
+    # heating end-use must be inert (zero demand, zero tank)
+    return (float(params.series.heating_demand.max()) <= 0.0
+            and float(params.heating_storage.capacity.max()) <= 0.0)
+
+
+def lstm_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: int,
+                        action_tables: Dict[str, object], n_steps: Optional[int] = None,
+                        data_offset: int = 0) -> dict:
+    """Keyword arguments of :func:`citylearn_tpu_torch.ops.lstm.lstm_episode`
+    for ``n_districts`` fresh copies of the district under open-loop plans
+    (see :func:`run_lstm_episode`), on the device of ``params``."""
+    S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
+    off = int(data_offset)
+    B = cfg.n_buildings
+    dev = params.device
+    ser = params.series
+    hours = ser.hour[off:off + S, 0].cpu().numpy()
+    plan = lambda k: torch.tensor(
+        np.ascontiguousarray(expand_action_plan(action_tables[k], hours, S, B))
+        if action_tables.get(k) is not None else np.zeros((S, B), np.float32), device=dev)
+    bparams, curves = battery_tables(params.battery)
+    units = _lstm_units(cfg, params)
+
+    # per building: its LSTM for the weight buffer, its rows of lparams and
+    # its static channels, pre-normalized at pack time, with the two
+    # channels the kernel fills in zeroed
+    lrows = np.zeros((N_LROWS, B), np.float32)
+    schan = np.zeros((S, sum(pad4(u["F"]) for u in units)), np.float32)
+    host = [{k: getattr(d, k).cpu().numpy()
+             for k in ("lin_w", "lin_b", "norm_min", "norm_max", "cooling_device_active")}
+            for d in params.dynamics]
+    static = [d.static_channels[off:off + S].cpu().numpy() for d in params.dynamics]
+    layers = [[[w.cpu().numpy() for w in per_layer] for per_layer in (d.w_ih, d.w_hh, d.bias)]
+              for d in params.dynamics]
+    buildings, x_off = [], 0
+    for b, u in enumerate(units):
+        g, row, F, tc, cc = u["g"], u["row"], u["F"], u["tc"], u["cc"]
+        nmin, nmax = host[g]["norm_min"][row], host[g]["norm_max"][row]
+        lrows[L_NMIN_CC, b], lrows[L_NSPAN_CC, b] = nmin[cc], nmax[cc] - nmin[cc]
+        lrows[L_NMIN_TC, b], lrows[L_NSPAN_TC, b] = nmin[tc], nmax[tc] - nmin[tc]
+        lrows[L_LIN_B, b] = host[g]["lin_b"][row]
+        lrows[L_COOL_ACTIVE, b] = float(host[g]["cooling_device_active"][row])
+        rows = static[g][:, row, :]
+        schan[:rows.shape[0], x_off:x_off + F] = rows
+        schan[:, x_off + cc] = 0.0
+        schan[:, x_off + tc] = 0.0
+        w_ih, w_hh, bias = ([w[row] for w in per_layer] for per_layer in layers[g])
+        buildings.append(dict(w_ih=w_ih, w_hh=w_hh, bias=bias, lin_w=host[g]["lin_w"][row],
+                              tc=tc, cc=cc))
+        x_off += pad4(F)
+
+    band = (torch.full((S, B), float(cfg.reward_band), device=dev)
+            if cfg.reward_band is not None else _pad_time(ser.comfort_band, S, off))
+    bat, ct, dt = params.battery, params.cooling_storage, params.dhw_storage
+    tile = lambda v: v.expand(n_districts, B).contiguous()
+    return dict(
+        actions=tuple(plan(k) for k in LSTM_KEYS),
+        series=(*(_pad_time(x, S, off) for x in (
+            ser.non_shiftable_load, ser.solar_generation, ser.electricity_pricing,
+            ser.carbon_intensity, ser.cooling_demand, ser.dhw_demand,
+            ser.outdoor_dry_bulb_temperature, ser.hvac_mode.to(torch.float32),
+            ser.indoor_dry_bulb_temperature,
+            ser.indoor_dry_bulb_temperature_cooling_set_point,
+            ser.indoor_dry_bulb_temperature_heating_set_point)),
+            band, torch.tensor(schan, device=dev), _pad_time(ser.power_outage, S, off)),
+        bparams=bparams, curves=curves, tparams=thermal_rows(params),
+        lparams=torch.tensor(lrows, device=dev),
+        weights=pack_weights(buildings, dev),
+        csoc0=tile(ct.initial_soc), dsoc0=tile(dt.initial_soc),
+        soc0=tile(bat.initial_soc), eff0=tile(bat.efficiency), deg0=tile(bat.capacity),
+        hours_ratio=cfg.seconds_per_time_step / 3600.0, ratio=cfg.time_step_ratio,
+        lookback=units[0]["lookback"],
+        lo_exp=float(cfg.reward_lower_exponent), hi_exp=float(cfg.reward_higher_exponent))
+
+
+def run_lstm_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
+                     action_tables: Dict[str, object], n_steps: Optional[int] = None,
+                     record_series: bool = False, data_offset: int = 0, device=None):
+    """Whole-episode rollout on the LSTM-dynamics kernel for
+    ``n_districts`` identical district copies under open-loop plans
+    ``{action_name: (24,) hour table | (S,) | (S, B)}`` over
+    cooling_device / cooling_storage / dhw_storage / electrical_storage
+    (missing keys act 0), on ``device`` (the CUDA card by default).
+
+    Returns (reward_sum, cost_sum, emission_sum, cool_soc, dhw_soc,
+    bat_soc, bat_eff, bat_degraded, last_temp), each (D, B); with
+    ``record_series=True`` an (N_LREC, S, B) per-step stream of district
+    0 is appended (see :mod:`citylearn_tpu_torch.ops.lstm` row constants).
+    ``data_offset`` shifts the episode window as in
+    :func:`run_battery_episode`."""
+    if not lstm_packable(cfg, params):
+        raise ValueError("configuration not eligible for the LSTM fast path")
+    params = params.to(resolve_device(device))
+    return lstm_episode(**lstm_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)

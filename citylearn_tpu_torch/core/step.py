@@ -5,8 +5,10 @@ buildings hold cooling, heating and DHW end uses (heat pump or electric
 heater plus a storage tank each), a battery, PV and a non-shiftable
 load — the 2022 (battery+PV) and 2021 (thermal-storage) families — plus
 the EV chargers, electric vehicles, washing machines and charging
-constraints of the ``plus_evs`` family. Power outage, LSTM dynamics,
-occupants and the float64 parity mode raise ``NotImplementedError``.
+constraints of the ``plus_evs`` family, and the LSTM temperature
+dynamics, partial-load HVAC control and power outages of the 2023
+family. Occupants and the float64 parity mode raise
+``NotImplementedError``.
 
 Everything is elementwise over a ``(D, B)`` batch of districts and
 buildings; charger, EV and machine quantities are ``(D, C)``, ``(D, V)``
@@ -22,7 +24,8 @@ the cross-block coupling (``downward_electrical_flexibility``,
 ``building.py:640-668``) is threaded through a consumption accumulator.
 Without a power outage that flexibility is +inf: the blocks decouple and
 the late battery variant equals the early one, so it is computed only
-for a configuration with an outage.
+for a configuration with an outage (computing it always doubles the
+cost of a battery+PV step).
 
 t == 0 quirks reproduced (``building.py:2526-2564, 2615-2652``): at reset
 the device-energy arrays are prefilled with the raw demand series and
@@ -42,6 +45,7 @@ import torch
 from citylearn_tpu_torch.core import hvac
 from citylearn_tpu_torch.core.battery import battery_charge
 from citylearn_tpu_torch.core.curves import interp_linear
+from citylearn_tpu_torch.core.dynamics import lstm_predict
 from citylearn_tpu_torch.core.reward import (
     EVRewardInputs,
     RewardInputs,
@@ -57,22 +61,23 @@ from citylearn_tpu_torch.core.types import (
     StaticConfig,
     StepOutput,
     StorageTankParams,
+    map_tensors,
 )
 
 #: configuration flags of blocks this step does not carry
-_UNSUPPORTED = ("has_dynamics", "has_occupant", "any_outage", "has_stochastic_outage",
-                "parity_f64")
+_UNSUPPORTED = ("has_occupant", "parity_f64")
 
 
 def check_supported(cfg: StaticConfig):
     """Raise ``NotImplementedError`` for a configuration outside the
-    battery+PV, thermal-storage and EV districts."""
+    battery+PV, thermal-storage, EV and LSTM-dynamics districts."""
     on = [name for name in _UNSUPPORTED if getattr(cfg, name)]
     if on:
         raise NotImplementedError(
-            f"the PyTorch port steps battery+PV, thermal-storage and EV districts "
-            f"(cooling, heating and DHW devices and tanks, battery, PV, chargers, "
-            f"EVs, washing machines); this configuration sets {', '.join(on)}")
+            f"the PyTorch port steps battery+PV, thermal-storage, EV and LSTM-dynamics "
+            f"districts (cooling, heating and DHW devices and tanks, battery, PV, chargers, "
+            f"EVs, washing machines, temperature dynamics, power outages); this "
+            f"configuration sets {', '.join(on)}")
 
 
 class _ThermalResult(NamedTuple):
@@ -147,6 +152,97 @@ def _thermal_block(dev: HVACParams, tank: StorageTankParams, soc_prev: torch.Ten
                            device_output=pick(out_A, out_B),
                            apply_consumption=apply_cons),
             cons_accum + apply_cons)
+
+
+def _partial_load_demand(cfg: StaticConfig, params: DistrictParams, t: torch.Tensor,
+                         actions: Dict[str, torch.Tensor], cooling_demand: torch.Tensor,
+                         heating_demand: torch.Tensor, hvac_mode: torch.Tensor,
+                         outdoor_t: torch.Tensor, dev_init_cool: torch.Tensor,
+                         dev_init_heat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partial-load demand override for LSTM dynamics buildings (reference
+    ``building.py:3080-3158``): the device action sets the available
+    electric power, and demand becomes the device's maximum output under
+    that power, gated by ``hvac_mode``; the ideal load is kept while the
+    LSTM's input buffer fills (control starts at ``t >= lookback + 1``).
+    Returns the controlled (cooling, heating) demands, (D, B) each."""
+    zero = torch.zeros_like(cooling_demand)
+    hours_ratio = cfg.seconds_per_time_step / 3600.0
+    coh_all = actions.get("cooling_or_heating_device", zero)
+    cool_all = actions.get("cooling_device", zero)
+    heat_all = actions.get("heating_device", zero)
+    for (lookback, *_), dyn in zip(cfg.dyn_groups, params.dynamics):
+        m = dyn.member_indices.long()
+        control_warm = (t >= lookback + 1)[:, None]
+        coh = coh_all[:, m]
+        cool_act = torch.where(dyn.cooling_or_heating_active,
+                               torch.abs(torch.clamp(coh, max=0.0)), cool_all[:, m])
+        heat_act = torch.where(dyn.cooling_or_heating_active,
+                               torch.abs(torch.clamp(coh, min=0.0)), heat_all[:, m])
+        cool_active = dyn.cooling_device_active | dyn.cooling_or_heating_active
+        heat_active = dyn.heating_device_active | dyn.cooling_or_heating_active
+        cool_dev = map_tensors(lambda a: a[m], params.cooling_device)
+        heat_dev = map_tensors(lambda a: a[m], params.heating_device)
+        mode, out_t = hvac_mode[:, m], outdoor_t[:, m]
+        partial_c = hvac.max_output_power(cool_dev, out_t, False,
+                                          cool_act * cool_dev.nominal_power * hours_ratio,
+                                          dev_init_cool[:, m])
+        partial_c = torch.where((mode == 1) | (mode == 3), partial_c, zero[:, m])
+        cooling_demand = cooling_demand.index_copy(
+            1, m, torch.where(control_warm & cool_active, partial_c, cooling_demand[:, m]))
+        # heating uses no hours ratio (building.py:3146) — shipped quirk
+        partial_h = hvac.max_output_power(heat_dev, out_t, True,
+                                          heat_act * heat_dev.nominal_power,
+                                          dev_init_heat[:, m])
+        partial_h = torch.where((mode == 2) | (mode == 3), partial_h, zero[:, m])
+        heating_demand = heating_demand.index_copy(
+            1, m, torch.where(control_warm & heat_active, partial_h, heating_demand[:, m]))
+    return cooling_demand, heating_demand
+
+
+def dynamics_update(cfg: StaticConfig, params: DistrictParams, tau: torch.Tensor,
+                    t: torch.Tensor, cooling_demand_obs: torch.Tensor,
+                    heating_demand_obs: torch.Tensor, temp_ideal: torch.Tensor,
+                    lstm_h_in: Tuple[torch.Tensor, ...], lstm_c_in: Tuple[torch.Tensor, ...],
+                    dyn_input_in: Tuple[torch.Tensor, ...]):
+    """LSTM temperature dynamics for one step (building.py:2935-3078):
+    channel updates, the one-step-older temperature-channel quirk,
+    warm-gated hidden-state carry. ``tau``/``t`` are (D,), the demand
+    observations and ``temp_ideal`` (D, B), the carry as
+    :class:`EnvState` holds it.
+
+    Returns ``(temp_t, lstm_h, lstm_c, dyn_input)``."""
+    temp_t = temp_ideal
+    lstm_h, lstm_c, dyn_input = list(lstm_h_in), list(lstm_c_in), list(dyn_input_in)
+    for g, (meta, dyn) in enumerate(zip(cfg.dyn_groups, params.dynamics)):
+        lookback, L, H, F, tc, cc, hc = meta
+        m = dyn.member_indices.long()
+        norm = lambda v, ch: ((v - dyn.norm_min[:, ch])
+                              / (dyn.norm_max[:, ch] - dyn.norm_min[:, ch]))
+        vals = dyn.static_channels[tau].clone()             # (D, Bg, F) pre-normalized
+        if cc >= 0:
+            vals[..., cc] = norm(cooling_demand_obs[:, m], cc)
+        if hc >= 0:
+            vals[..., hc] = norm(heating_demand_obs[:, m], hc)
+        vals[..., tc] = norm(temp_ideal[:, m], tc)
+        buf = torch.cat([dyn_input[g][..., 1:], vals[..., None]], dim=-1)
+
+        predict_warm = (t >= lookback)[:, None]             # (D, 1)
+        # model input (building.py:3039-3055): all channels use the last
+        # `lookback` entries except indoor temperature which uses the
+        # first `lookback` (one step older)
+        model_in = buf[..., 1:].clone()
+        model_in[:, :, tc, :] = buf[:, :, tc, :-1]
+        pred_norm, h_new, c_new = lstm_predict(dyn, model_in.transpose(2, 3),
+                                               lstm_h[g], lstm_c[g])
+        buf[:, :, tc, -1] = torch.where(predict_warm, pred_norm, buf[:, :, tc, -1])
+        pred_temp = pred_norm * (dyn.norm_max[:, tc] - dyn.norm_min[:, tc]) \
+            + dyn.norm_min[:, tc]
+        temp_t = temp_t.index_copy(1, m, torch.where(predict_warm, pred_temp, temp_ideal[:, m]))
+        carry_warm = predict_warm[:, :, None, None]         # over (D, L, Bg, H)
+        lstm_h[g] = torch.where(carry_warm, h_new, lstm_h[g])
+        lstm_c[g] = torch.where(carry_warm, c_new, lstm_c[g])
+        dyn_input[g] = buf
+    return temp_t, tuple(lstm_h), tuple(lstm_c), tuple(dyn_input)
 
 
 class _EVResult(NamedTuple):
@@ -322,7 +418,9 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     ``state`` carries a leading district axis ``D``; ``actions`` maps
     names to (D, B) tensors, of which this step reads
     ``electrical_storage``, ``cooling_storage``, ``heating_storage`` and
-    ``dhw_storage``, plus ``electric_vehicle_storage`` (D, C) over the
+    ``dhw_storage``, on a dynamics district also ``cooling_device``,
+    ``heating_device`` and ``cooling_or_heating_device``, plus
+    ``electric_vehicle_storage`` (D, C) over the
     district's chargers and ``washing_machine`` (D, W) over its machines; a
     missing or inactive action is 0.0 (reference ``building.py:1561-1564``).
     """
@@ -336,21 +434,23 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
 
     at = lambda arr: arr[tau]                      # (T, B) -> (D, B)
     nsl = at(series.non_shiftable_load)
-    cooling_demand = at(series.cooling_demand)
-    heating_demand = at(series.heating_demand)
+    cooling_demand_ideal = at(series.cooling_demand)
+    heating_demand_ideal = at(series.heating_demand)
     dhw_demand = at(series.dhw_demand)
     solar_abs = at(series.solar_generation)
     outdoor_t = at(series.outdoor_dry_bulb_temperature)
     pricing = at(series.electricity_pricing)
     carbon = at(series.carbon_intensity)
     outage = at(series.power_outage) > 0.0
+    hvac_mode = at(series.hvac_mode)
+    temp_ideal = at(series.indoor_dry_bulb_temperature)
     zero = torch.zeros_like(nsl)
     action = lambda name: actions.get(name, zero)
     t0 = lambda x: torch.where(is_t0, x, zero)
 
     # reset-time update_variables consumption already booked at index 0
-    # (building.py:2554-2558 prefill + 2618-2652), from the prefilled
-    # demand. The heating branch uses the *dhw* device's efficiency when
+    # (building.py:2554-2558 prefill + 2618-2652), always from the *ideal*
+    # (prefilled) demand. The heating branch uses the *dhw* device's efficiency when
     # the heating device is not a heat pump (building.py:2629-2632) —
     # shipped quirk.
     def heating_input(output):
@@ -358,12 +458,18 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
                            hvac.input_power(params.heating_device, output, outdoor_t, True),
                            output / params.dhw_device.efficiency)
 
-    reset_cool = (hvac.input_power(params.cooling_device, cooling_demand, outdoor_t, False)
-                  if cfg.any_cooling else zero)
-    reset_heat = heating_input(heating_demand) if cfg.any_heating else zero
+    reset_cool = (hvac.input_power(params.cooling_device, cooling_demand_ideal, outdoor_t,
+                                   False) if cfg.any_cooling else zero)
+    reset_heat = heating_input(heating_demand_ideal) if cfg.any_heating else zero
     reset_dhw = (hvac.input_power(params.dhw_device, dhw_demand, outdoor_t, True)
                  if cfg.any_dhw else zero)
     cons_accum = t0(reset_cool + reset_heat + reset_dhw + nsl)
+
+    cooling_demand, heating_demand = cooling_demand_ideal, heating_demand_ideal
+    if cfg.has_dynamics:
+        cooling_demand, heating_demand = _partial_load_demand(
+            cfg, params, t, actions, cooling_demand, heating_demand, hvac_mode, outdoor_t,
+            t0(reset_cool), t0(reset_heat))
 
     # ---- electrical storage, early variant (discharging runs first,
     # building.py:1606-1609) ----
@@ -470,6 +576,16 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     dhw_store_cons = (hvac.input_power(params.dhw_device, dhw.balance, outdoor_t, True)
                       if cfg.any_dhw else zero)
 
+    # ---- LSTM temperature dynamics (building.py:2935-3078) on the fresh
+    # demand observations (building.py:1435-1437) ----
+    cooling_demand_obs = cool.device_output + torch.clamp(-cool.balance, min=0.0)
+    heating_demand_obs = heat.device_output + torch.clamp(-heat.balance, min=0.0)
+    temp_t, lstm_h, lstm_c, dyn_input = dynamics_update(
+        cfg, params, tau, t, cooling_demand_obs, heating_demand_obs, temp_ideal,
+        state.lstm_h, state.lstm_c, state.dyn_input)
+    cooling_sp = at(series.indoor_dry_bulb_temperature_cooling_set_point)
+    heating_sp = at(series.indoor_dry_bulb_temperature_heating_set_point)
+
     new_state = EnvState(
         t=t + 1,
         data_offset=state.data_offset,
@@ -483,6 +599,7 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         ev_efficiency=ev.ev_efficiency,
         ev_degraded_capacity=ev.ev_degraded_capacity,
         wm_initiated=wm_initiated,
+        lstm_h=lstm_h, lstm_c=lstm_c, dyn_input=dyn_input,
     )
     reward = compute_reward(cfg, ev=ev.reward_inputs, x=RewardInputs(
         net=net, solar=solar_abs, battery_soc=bat.soc,
@@ -491,7 +608,11 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         battery_capacity=params.battery.capacity,
         cooling_storage_capacity=params.cooling_storage.capacity,
         heating_storage_capacity=params.heating_storage.capacity,
-        dhw_storage_capacity=params.dhw_storage.capacity))
+        dhw_storage_capacity=params.dhw_storage.capacity,
+        indoor_temperature=temp_t, hvac_mode=hvac_mode,
+        cooling_set_point=cooling_sp, heating_set_point=heating_sp,
+        comfort_band=at(series.comfort_band),
+        cooling_demand=cooling_demand_obs, heating_demand=heating_demand_obs))
     out = StepOutput(
         net_electricity_consumption=net,
         net_electricity_consumption_cost=cost,
@@ -520,9 +641,9 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         battery_balance=bat.energy_balance,
         cooling_demand_actual=cooling_demand,
         heating_demand_actual=heating_demand,
-        indoor_temperature=at(series.indoor_dry_bulb_temperature),
-        cooling_set_point=at(series.indoor_dry_bulb_temperature_cooling_set_point),
-        heating_set_point=at(series.indoor_dry_bulb_temperature_heating_set_point),
+        indoor_temperature=temp_t,
+        cooling_set_point=cooling_sp,
+        heating_set_point=heating_sp,
         chargers_consumption=ev.chargers_consumption,
         washing_machines_consumption=wm_cons,
         ev_soc=ev.ev_soc,

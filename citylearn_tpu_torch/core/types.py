@@ -17,25 +17,30 @@ import torch
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """``{"field.subfield": tensor}`` over a dataclass of tensors."""
+    """``{"field.subfield": tensor}`` over a dataclass of tensors; the
+    members of a tuple are keyed by their index (``"lstm_h.0"``)."""
     out = {}
-    for f in dataclasses.fields(tree):
-        v = getattr(tree, f.name)
-        if dataclasses.is_dataclass(v):
-            out.update(flatten(v, f"{prefix}{f.name}."))
+    items = (enumerate(tree) if isinstance(tree, tuple)
+             else ((f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)))
+    for name, v in items:
+        if dataclasses.is_dataclass(v) or isinstance(v, tuple):
+            out.update(flatten(v, f"{prefix}{name}."))
         elif v is not None:
-            out[f"{prefix}{f.name}"] = v
+            out[f"{prefix}{name}"] = v
     return out
 
 
 def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     """A copy of ``tree`` with ``fn`` applied to every tensor leaf (an
-    absent block or leaf stays ``None``)."""
+    absent block or leaf stays ``None``; tuples map member by member)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return tuple(map_tensors(fn, v) for v in tree)
+    if not dataclasses.is_dataclass(tree):
+        return fn(tree)
     return dataclasses.replace(tree, **{
-        f.name: (map_tensors(fn, v) if dataclasses.is_dataclass(v)
-                 else None if v is None else fn(v))
-        for f in dataclasses.fields(tree)
-        for v in (getattr(tree, f.name),)})
+        f.name: map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
 
 
 @dataclasses.dataclass
@@ -109,6 +114,32 @@ class SeriesData:
 
 
 @dataclasses.dataclass
+class DynamicsParams:
+    """Stacked LSTM temperature-dynamics weights for one *group* of
+    buildings sharing identical shapes/channels (reference
+    ``citylearn/dynamics.py:15-127``; weights loaded offline from the
+    dataset ``.pth`` files). Districts with heterogeneous models carry a
+    tuple of groups; ``member_indices`` maps group rows to building rows.
+    Layer axes: ``(Bg, 4H, F_in)``, torch gate order i,f,g,o."""
+    member_indices: torch.Tensor          # (Bg,) int32 building indices
+    w_ih: Tuple[torch.Tensor, ...]        # per layer: (Bg, 4H, F or H)
+    w_hh: Tuple[torch.Tensor, ...]        # per layer: (Bg, 4H, H)
+    bias: Tuple[torch.Tensor, ...]        # per layer: (Bg, 4H) = b_ih + b_hh
+    lin_w: torch.Tensor                   # (Bg, H)
+    lin_b: torch.Tensor                   # (Bg,)
+    norm_min: torch.Tensor                # (Bg, F)
+    norm_max: torch.Tensor                # (Bg, F)
+    # Pre-normalized data-driven channel values, (T, Bg, F); dynamic
+    # channels (cooling/heating demand, indoor temperature) are zero and
+    # overwritten each step.
+    static_channels: torch.Tensor
+    # per-building action-availability masks for partial-load control
+    cooling_device_active: torch.Tensor   # (Bg,) bool
+    heating_device_active: torch.Tensor
+    cooling_or_heating_active: torch.Tensor
+
+
+@dataclasses.dataclass
 class ChargerParams:
     """EV chargers stacked over a district-wide charger axis ``C``
     (reference ``electric_vehicle_charger.py``); schedule tensors are
@@ -175,6 +206,9 @@ class DistrictParams:
     # returned at sim-range row tau is obs_static[tau] (state-derived
     # columns read zero there; see core/params.DERIVED_ZERO_OBSERVATIONS)
     obs_static: torch.Tensor
+    # one entry per group of buildings with identical LSTM shapes; empty
+    # on a district without dynamics
+    dynamics: Tuple[DynamicsParams, ...] = ()
     # absent (None) on a district without chargers / washing machines
     chargers: Optional[ChargerParams] = None
     evs: Optional[EVParams] = None
@@ -198,10 +232,15 @@ class StaticConfig:
     seconds_per_time_step: float
     time_step_ratio: float
     simulate_power_outage: Tuple[bool, ...]   # per building
-    # stochastic outage, the float64 parity mode, dynamics and occupants
-    # are blocks the JAX package carries and this port does not yet: a
-    # configuration that sets any of them raises in core/step.py
+    # Any building uses a stochastic outage model. The signal is baked at
+    # pack time for the DEFAULT episode window only (rows
+    # [0, episode_steps) of the sim range; core/params.py), so batched
+    # paths need data_offset == 0 or a signal rebaked by
+    # core/params.rebake_outage.
     has_stochastic_outage: bool = False
+    # the float64 parity mode and occupants are blocks the JAX package
+    # carries and this port does not yet: a configuration that sets either
+    # raises in core/step.py
     parity_f64: bool = False             # float64 reference-parity mode
     reward_exponent: float = 1.0
     reward_type: str = "RewardFunction"
@@ -214,6 +253,8 @@ class StaticConfig:
     # reward_function.py:90-118): per-building (type, exponent, band,
     # lower_exponent, higher_exponent, coefficients); None = single reward
     reward_per_building: Optional[Tuple[Tuple, ...]] = None
+    # LSTM dynamics groups: per group static meta
+    # (lookback, num_layers, hidden, n_channels, temp_ch, cool_ch, heat_ch)
     dyn_groups: Tuple[Tuple[int, int, int, int, int, int, int], ...] = ()
     has_dynamics: bool = False
     max_lookback: int = 0
@@ -257,6 +298,12 @@ class EnvState:
     ev_efficiency: torch.Tensor
     ev_degraded_capacity: torch.Tensor
     wm_initiated: torch.Tensor            # bool
+    # LSTM dynamics carry per group: hidden/cell (L, Bg, H) and the
+    # normalized input ring buffer (Bg, F, lookback + 1); empty tuples on
+    # a district without dynamics
+    lstm_h: Tuple[torch.Tensor, ...] = ()
+    lstm_c: Tuple[torch.Tensor, ...] = ()
+    dyn_input: Tuple[torch.Tensor, ...] = ()
 
     def to(self, device) -> "EnvState":
         return map_tensors(lambda x: x.to(device), self)
@@ -292,11 +339,11 @@ class StepOutput:
     heating_storage_balance: torch.Tensor
     dhw_storage_balance: torch.Tensor
     battery_balance: torch.Tensor
-    # controlled demand series: equal to the data series without
-    # partial-load (dynamics) buildings, which the port does not carry yet
+    # controlled demand series (equals the data series for plain buildings,
+    # partial-load demand for LSTM dynamics buildings)
     cooling_demand_actual: torch.Tensor
     heating_demand_actual: torch.Tensor
-    indoor_temperature: torch.Tensor
+    indoor_temperature: torch.Tensor             # predicted for dynamics buildings
     cooling_set_point: torch.Tensor
     heating_set_point: torch.Tensor
     chargers_consumption: torch.Tensor           # (D, B)

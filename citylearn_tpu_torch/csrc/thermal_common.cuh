@@ -5,8 +5,10 @@
 // (reference building.py:1641-1823, energy_model.py:157-451, 603-871).
 //
 // Replaces citylearn_tpu/ops/pallas_thermal.py::_cop, _tank and
-// _thermal_block (the no-outage form: downward electrical flexibility is
-// +inf, so the blocks decouple). Every operation rounds as the plain
+// _thermal_block. EndUse::step<false> is the no-outage form (downward
+// electrical flexibility is +inf, so the blocks decouple and the cap
+// compiles away); step<true> caps the device's electric power by the solar
+// generation left during an outage. Every operation rounds as the plain
 // PyTorch version (ops/thermal.py) rounds it, when built with -fmad=false
 // and IEEE division and square root.
 
@@ -28,6 +30,13 @@ enum Row {
     DT_CAP, DT_RT, DT_LOSS, DT_MI, DT_MO, DT_CONV,      // dhw tank
     N_TROWS
 };
+
+// downward_electrical_flexibility (reference building.py:640-668): under
+// an outage the solar generation left after the consumption booked so
+// far, +inf otherwise.
+__device__ __forceinline__ float flexibility(bool outage, float solar, float accum) {
+    return outage ? max_nan(0.f, solar - accum) : __int_as_float(0x7f800000);
+}
 
 // A storage tank's parameters and its charge event
 // (energy_model.py:603-871 with the env's pre-divide by time_step_ratio).
@@ -101,16 +110,30 @@ struct EndUse {
     // (action >= 0) lets the device run first and charges from what
     // nominal power is left; a discharging tank runs before the device.
     // `dev_init` is the device consumption already booked at this index
-    // (non-zero at t == 0 only).
+    // (non-zero at t == 0 only). With FLEX the electric power the device
+    // may draw is also capped by flexibility(outage, solar, accum), `accum`
+    // being the district-level consumption booked before this block.
+    template <bool FLEX>
     __device__ __forceinline__ BlockResult step(float demand, float action, float cop,
                                                 float dev_init, float hours_mul, float ratio,
-                                                float& soc) const {
+                                                float& soc, bool outage = false,
+                                                float solar = 0.f, float accum = 0.f) const {
         const float energy_req = action * conv * hours_mul;
+        // the most the device can put out with `booked` consumed by itself
+        // and `extra` added to the district's consumption since `accum`
+        auto max_out = [&](float booked, float extra) {
+            const float avail = nominal - booked;
+            if constexpr (FLEX) {
+                return min_nan(flexibility(outage, solar, accum + extra), avail) * cop;
+            } else {
+                return avail * cop;
+            }
+        };
         BlockResult r;
         if (!(action < 0.f)) {
-            r.out = min_nan(demand, (nominal - dev_init) * cop);
+            r.out = min_nan(demand, max_out(dev_init, 0.f));
             const float cons_dev = max_nan(0.f, r.out / cop);
-            const float charge = min_nan((nominal - (dev_init + cons_dev)) * cop, energy_req);
+            const float charge = min_nan(max_out(dev_init + cons_dev, cons_dev), energy_req);
             r.balance = tank.step(charge / ratio, ratio, soc);
             r.cons = cons_dev + max_nan(r.balance, 0.f) / cop;
         } else {
@@ -119,7 +142,7 @@ struct EndUse {
             // 0 for a true discharge; booked as the stepped path books it
             const float cons_store = max_nan(r.balance, 0.f) / cop;
             const float storage_out = -min_nan(r.balance, 0.f);
-            r.out = min_nan(demand - storage_out, (nominal - (dev_init + cons_store)) * cop);
+            r.out = min_nan(demand - storage_out, max_out(dev_init + cons_store, cons_store));
             r.cons = max_nan(0.f, r.out / cop) + cons_store;
         }
         return r;

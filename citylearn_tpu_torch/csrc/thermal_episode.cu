@@ -87,10 +87,10 @@ __global__ void thermal_episode_kernel(
         const float reset_dhw = dhw_d / cop_d;
 
         // cooling takes no hours ratio, DHW does (building.py:1663, 1765)
-        const BlockResult c = cooling.step(cool_d, a_cool[o], cop_c, t0f * reset_cool,
+        const BlockResult c = cooling.step<false>(cool_d, a_cool[o], cop_c, t0f * reset_cool,
                                            1.f, ratio, csoc);
-        const BlockResult w = dhw.step(dhw_d, a_dhw[o], cop_d, t0f * reset_dhw,
-                                       hours_ratio, ratio, dsoc);
+        const BlockResult w = dhw.step<false>(dhw_d, a_dhw[o], cop_d, t0f * reset_dhw,
+                                              hours_ratio, ratio, dsoc);
         const float balance = bat.step(a_bat[o], hours_ratio, ratio, soc, eff, deg);
 
         // update_variables accounting with the t == 0 multi-count

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -91,21 +91,40 @@ def _tank(tparams: torch.Tensor, off: int, soc: torch.Tensor, energy: torch.Tens
     return new_soc, balance
 
 
+def flexibility(outage: torch.Tensor, solar: torch.Tensor, accum: torch.Tensor) -> torch.Tensor:
+    """``downward_electrical_flexibility`` (reference ``building.py:640-668``):
+    under an outage the solar generation left after the consumption booked
+    so far, +inf otherwise."""
+    cap = torch.clamp(solar - accum, min=0.0)
+    return torch.where(outage > 0.0, cap, torch.full_like(cap, torch.inf))
+
+
 def _thermal_block(tparams: torch.Tensor, dev_off: int, tank_off: int, conv_row: int,
                    soc: torch.Tensor, demand: torch.Tensor, action: torch.Tensor,
                    cop: torch.Tensor, dev_init: torch.Tensor, hours_mul: float,
-                   ratio: float) -> Tuple[torch.Tensor, ...]:
+                   ratio: float, outage: Optional[torch.Tensor] = None,
+                   solar: Optional[torch.Tensor] = None,
+                   cons_accum: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """One end use, both priority orders, selected by the action's sign
-    (the stepped ``core/step._thermal_block`` with +inf electrical
-    flexibility). Returns (soc', balance, device_output, apply_consumption)."""
+    (the stepped ``core/step._thermal_block``). Without ``outage`` the
+    electrical flexibility is +inf and the blocks decouple; with it the
+    device's electric power is capped by ``max(0, solar - cons_accum)``
+    during an outage, ``cons_accum`` being the district-level consumption
+    booked before this block. Returns (soc', balance, device_output,
+    apply_consumption)."""
     nominal = tparams[dev_off]
     energy_req = action * tparams[conv_row] * hours_mul
-    max_out = lambda booked: (nominal - booked) * cop
+    if outage is None:
+        max_out = lambda booked, extra: (nominal - booked) * cop
+    else:
+        max_out = lambda booked, extra: torch.minimum(
+            flexibility(outage, solar, cons_accum + extra), nominal - booked) * cop
+    zero = torch.zeros_like(dev_init)
 
     # variant A: device first, then storage charge
-    out_A = torch.minimum(demand, max_out(dev_init))
+    out_A = torch.minimum(demand, max_out(dev_init, zero))
     cons_dev_A = torch.clamp(out_A / cop, min=0.0)
-    charge_A = torch.minimum(max_out(dev_init + cons_dev_A), energy_req)
+    charge_A = torch.minimum(max_out(dev_init + cons_dev_A, cons_dev_A), energy_req)
     soc_A, bal_A = _tank(tparams, tank_off, soc, charge_A / ratio, ratio)
     cons_store_A = torch.clamp(bal_A, min=0.0) / cop
 
@@ -114,7 +133,8 @@ def _thermal_block(tparams: torch.Tensor, dev_off: int, tank_off: int, conv_row:
     soc_B, bal_B = _tank(tparams, tank_off, soc, discharge_B / ratio, ratio)
     cons_store_B = torch.clamp(bal_B, min=0.0) / cop     # 0 for a true discharge
     storage_out_B = -torch.clamp(bal_B, max=0.0)
-    out_B = torch.minimum(demand - storage_out_B, max_out(dev_init + cons_store_B))
+    out_B = torch.minimum(demand - storage_out_B,
+                          max_out(dev_init + cons_store_B, cons_store_B))
     cons_dev_B = torch.clamp(out_B / cop, min=0.0)
 
     pick = lambda a, b: torch.where(action < 0.0, b, a)

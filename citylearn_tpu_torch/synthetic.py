@@ -12,6 +12,12 @@ DHW storage tanks. :func:`write_ev_dataset` writes the shape of
 ``citylearn_challenge_2022_phase_all_plus_evs``: battery+PV buildings
 plus EV chargers with their schedule files, electric vehicles, washing
 machines, the EV reward function and, on request, charging constraints.
+:func:`write_lstm_dataset` writes the shape of
+``citylearn_challenge_2023_phase_1``: buildings whose indoor temperature
+follows an LSTM model (weights in a ``.pth`` file beside the CSVs), a
+cooling heat pump under the ``cooling_device`` action, DHW heater and
+tank, battery and PV, the ``ComfortReward`` and, on request, power
+outages.
 The series are smooth daily and seasonal profiles with seeded noise;
 they stand in for the bundled CityLearn data when it is not installed.
 """
@@ -100,7 +106,8 @@ def _write_shared_files(root: str, n_rows: int, rng: np.random.RandomState):
         pricing[f"electricity_pricing_predicted_{i}"] = np.roll(price, -lead)
     _write_csv(os.path.join(root, "pricing.csv"), pricing)
     return dict(hour=hour, month=month, day_type=day_type, h=h, season=season,
-                temp=temp, irradiance=np.clip(direct + diffuse, 0, None))
+                temp=temp, irradiance=np.clip(direct + diffuse, 0, None),
+                direct=direct, diffuse=diffuse)
 
 
 def _load_and_solar(rng: np.random.RandomState, cal: dict, n_rows: int):
@@ -455,3 +462,191 @@ def write_ev_dataset(root: str, n_buildings: int = 17, n_chargers: int = 8, n_ev
             "type": "citylearn.reward_function.Electric_Vehicles_Reward_Function",
             "attributes": reward_attributes},
         extra={"electric_vehicles_def": electric_vehicles})
+
+
+#: input channels of the LSTM temperature model, in the order of the
+#: 2023 datasets' ``input_observation_names``
+LSTM_INPUTS = [
+    "direct_solar_irradiance", "diffuse_solar_irradiance", "outdoor_dry_bulb_temperature",
+    "occupant_count", "cooling_demand", "month_sin", "month_cos", "hour_sin", "hour_cos",
+    "day_type_sin", "day_type_cos", "indoor_dry_bulb_temperature",
+]
+LSTM_OBSERVATIONS = [
+    "indoor_dry_bulb_temperature", "indoor_dry_bulb_temperature_cooling_set_point",
+    "indoor_dry_bulb_temperature_cooling_delta", "cooling_demand", "dhw_demand",
+    "occupant_count", "hvac_mode", "comfort_band", "power_outage", "dhw_storage_soc",
+]
+LSTM_ACTIONS = ACTIONS + ["cooling_device", "heating_device", "cooling_or_heating_device"]
+#: normalization range of the indoor-temperature channel, in degrees C
+LSTM_TEMPERATURE_RANGE = (15.0, 32.0)
+
+
+def _write_lstm_weights(path: str, rng: np.random.RandomState, n_inputs: int,
+                        hidden_size: int, num_layers: int):
+    """One building's LSTM state dict, under the keys of
+    ``torch.nn.LSTM`` (``l_lstm``) and its linear head (``l_linear``),
+    drawn from ``rng``. The head's bias puts the prediction near the
+    cooling set point and its weights spread it by a few degrees either
+    way, so that predicted temperatures fall on both sides of every
+    threshold of the comfort reward."""
+    import torch
+
+    k = 1.0 / np.sqrt(hidden_size)
+    draw = lambda shape, scale=1.0: torch.from_numpy(
+        rng.uniform(-k * scale, k * scale, shape).astype(np.float32))
+    state = {}
+    for layer in range(num_layers):
+        width = n_inputs if layer == 0 else hidden_size
+        state[f"l_lstm.weight_ih_l{layer}"] = draw((4 * hidden_size, width), 2.0)
+        state[f"l_lstm.weight_hh_l{layer}"] = draw((4 * hidden_size, hidden_size))
+        state[f"l_lstm.bias_ih_l{layer}"] = draw((4 * hidden_size,))
+        state[f"l_lstm.bias_hh_l{layer}"] = draw((4 * hidden_size,))
+    state["l_linear.weight"] = draw((1, hidden_size), 1.5)
+    state["l_linear.bias"] = torch.tensor([float(np.round(rng.uniform(0.45, 0.6), 3))])
+    torch.save(state, path)
+
+
+def write_lstm_dataset(root: str, n_buildings: int = 3, n_rows: int = 8760, seed: int = 0,
+                       hidden_size: int = 8, num_layers: int = 2, lookback: int = 12,
+                       outage: bool = False, heterogeneous: bool = False,
+                       stochastic_outage: bool = False) -> str:
+    """Write an LSTM-dynamics district under ``root`` and return the path
+    of its ``schema.json``. The same arguments always write the same files.
+
+    Every building is an ``LSTMDynamicsBuilding``: a ``dynamics`` block
+    names the ``.pth`` file of its LSTM (``num_layers`` layers of
+    ``hidden_size`` units over a window of ``lookback`` steps of the 12
+    channels :data:`LSTM_INPUTS`), whose predicted indoor temperature the
+    ``ComfortReward`` reads. The cooling heat pump runs under the
+    ``cooling_device`` action (partial load), DHW is an electric heater
+    with a tank, and there is a battery and PV; there is no heating demand
+    and no heating device or tank. ``hvac_mode`` is 1 (cooling) except on
+    days of heating (2), automatic (3) and, for some hours, off (0).
+
+    ``heterogeneous=True`` appends one building with a single layer of 50
+    units and gives building 2 a cooling tank under the ``cooling_storage``
+    action, which the others list as inactive. ``outage=True`` writes a
+    ``power_outage`` column with events by day and by night, several of
+    them inside the first 168 rows, and sets ``simulate_power_outage``;
+    ``stochastic_outage=True`` names the seeded
+    ``ReliabilityMetricsPowerOutage`` model instead of the column."""
+    rng = np.random.RandomState(seed)
+    cal = _write_shared_files(root, n_rows, rng)
+    h, season, temp = cal["h"], cal["season"], cal["temp"]
+    day = np.arange(n_rows) // 24
+    r2 = lambda lo, hi: float(np.round(rng.uniform(lo, hi), 2))
+    shapes = [(hidden_size, num_layers)] * n_buildings + ([(50, 1)] if heterogeneous else [])
+    tank_at = 1 if heterogeneous else None
+
+    mode = np.ones(n_rows, np.int64)
+    mode[day % 9 == 2] = 3
+    mode[day % 9 == 4] = 2
+    mode[(day % 9 == 6) & (h >= 8) & (h < 16)] = 0
+    # set points step from day to day, so that the predicted temperature
+    # falls in every interval the comfort reward tells apart
+    cooling_sp = np.where((h >= 7) & (h < 22), 24.0, 25.0) \
+        + np.array([0.0, -3.0, 2.0, -1.0, 0.0])[day % 5]
+    heating_sp = 20.0 + np.array([0.0, 3.0, 5.0, 1.5, -1.0])[(day // 2) % 5]
+    irradiance = {"direct_solar_irradiance": cal["direct"],
+                  "diffuse_solar_irradiance": cal["diffuse"]}
+
+    buildings = {}
+    for b, (hidden, layers) in enumerate(shapes):
+        name = f"Building_{b + 1}"
+        load, solar = _load_and_solar(rng, cal, n_rows)
+        afternoon = 0.4 + 0.6 * np.exp(-((h - 15) / 4.0) ** 2)
+        cooling = np.clip((temp - 5) * rng.uniform(0.15, 0.3) * afternoon
+                          + rng.normal(0, 0.1, n_rows), 0, None)
+        dhw = np.clip(rng.uniform(0.3, 0.9) * (np.exp(-((h - 7) / 1.5) ** 2)
+                                              + 0.7 * np.exp(-((h - 20) / 2.0) ** 2))
+                      + rng.normal(0, 0.03, n_rows), 0, None)
+        occupants = np.where((h >= 8) & (h < 17) & (cal["day_type"] <= 5), 1,
+                             rng.randint(1, 4, n_rows)).astype(np.int64)
+        indoor = 23.5 + 1.5 * season + rng.normal(0, 0.4, n_rows)
+        energy = {"month": cal["month"], "hour": cal["hour"], "day_type": cal["day_type"],
+                  "daylight_savings_status": np.zeros(n_rows, np.int64),
+                  "indoor_dry_bulb_temperature": indoor,
+                  "non_shiftable_load": load, "dhw_demand": dhw, "cooling_demand": cooling,
+                  "heating_demand": np.zeros(n_rows), "solar_generation": solar,
+                  "occupant_count": occupants,
+                  "indoor_dry_bulb_temperature_cooling_set_point": cooling_sp,
+                  "indoor_dry_bulb_temperature_heating_set_point": heating_sp,
+                  "hvac_mode": mode}
+        if outage:
+            # one event every fifth day alternating between midday and
+            # night, plus three inside the first week
+            signal = np.zeros(n_rows, np.int64)
+            starts = [26 + b, 82 + 2 * b, 131 + b] + [
+                d * 24 + (11 if d % 2 else 1) + b for d in range(9, n_rows // 24, 5)]
+            for i, s in enumerate(starts):
+                signal[s:s + 3 + (i + b) % 6] = 1
+            energy["power_outage"] = signal[:n_rows]
+        _write_csv(os.path.join(root, f"{name}.csv"), energy)
+
+        _write_lstm_weights(os.path.join(root, f"{name}.pth"), np.random.RandomState(
+            [seed, b, hidden, layers]), len(LSTM_INPUTS), hidden, layers)
+        # the periodic channels' ranges over a whole period, whatever part
+        # of it the rows cover: a channel with equal bounds divides by zero
+        cooling_power = r2(1.5, 2.5)
+        periodic = {k: np.arange(1, n + 1) / n
+                    for k, n in (("month", 12), ("hour", 24), ("day_type", 7))}
+        ranges = {"outdoor_dry_bulb_temperature": (temp.min(), temp.max()),
+                  "occupant_count": (0.0, 3.0),
+                  # the most the heat pump can deliver, at the largest COP
+                  "cooling_demand": (0.0, 20.0 * cooling_power),
+                  "indoor_dry_bulb_temperature": LSTM_TEMPERATURE_RANGE,
+                  **{k: (0.0, v.max()) for k, v in irradiance.items()},
+                  **{f"{k}_{fn.__name__}": (fn(2 * np.pi * v).min(), fn(2 * np.pi * v).max())
+                     for k, v in periodic.items() for fn in (np.sin, np.cos)}}
+        lo, hi = zip(*(ranges[k] for k in LSTM_INPUTS))
+        g6 = lambda xs: [float("%.6g" % x) for x in xs]
+
+        devices = _battery_and_pv(rng)
+        devices["cooling_device"] = {
+            "type": "citylearn.energy_model.HeatPump", "autosize": False,
+            "attributes": {"nominal_power": cooling_power, "efficiency": r2(0.2, 0.3),
+                           "target_cooling_temperature": r2(7.0, 10.0),
+                           "target_heating_temperature": r2(45.0, 50.0)}}
+        devices["dhw_device"] = {
+            "type": "citylearn.energy_model.ElectricHeater", "autosize": False,
+            "attributes": {"nominal_power": r2(2.0, 4.0), "efficiency": r2(0.9, 0.99)}}
+        tank = lambda capacity: {
+            "type": "citylearn.energy_model.StorageTank", "autosize": False,
+            "attributes": {"capacity": capacity, "efficiency": r2(0.9, 0.98),
+                           "loss_coefficient": float(np.round(rng.uniform(0.002, 0.008), 4)),
+                           "initial_soc": r2(0.1, 0.6)}}
+        devices["dhw_storage"] = tank(float(np.round(rng.uniform(1.5, 3.0) * dhw.max(), 2)))
+        if b == tank_at:
+            devices["cooling_storage"] = tank(
+                float(np.round(rng.uniform(1.5, 3.0) * cooling.max(), 2)))
+        entry = _building_entry(name, devices)
+        entry["type"] = "citylearn.building.LSTMDynamicsBuilding"
+        if heterogeneous and b != tank_at:
+            entry["inactive_actions"] = ["cooling_storage"]
+        entry["dynamics"] = {
+            "type": "citylearn.dynamics.LSTMDynamics",
+            "attributes": {"input_size": len(LSTM_INPUTS), "hidden_size": hidden,
+                           "num_layers": layers, "dropout": 0.0, "lookback": lookback,
+                           "filename": f"{name}.pth",
+                           "input_normalization_minimum": g6(lo),
+                           "input_normalization_maximum": g6(hi),
+                           "input_observation_names": LSTM_INPUTS}}
+        if outage or stochastic_outage:
+            entry["power_outage"] = {"simulate_power_outage": True}
+        if stochastic_outage:
+            entry["power_outage"].update(
+                stochastic_power_outage=True,
+                stochastic_power_outage_model={
+                    "type": "citylearn.power_outage.ReliabilityMetricsPowerOutage",
+                    "attributes": {"random_seed": seed + b, "saifi": 150.0, "caidi": 240.0}})
+        buildings[name] = entry
+
+    observations = OBSERVATIONS + LSTM_OBSERVATIONS \
+        + (["cooling_storage_soc"] if heterogeneous else [])
+    actions = {"cooling_device", "dhw_storage", "electrical_storage"} \
+        | ({"cooling_storage"} if heterogeneous else set())
+    return _write_schema(
+        root, n_rows, seed, observations, actions, buildings, action_names=LSTM_ACTIONS,
+        reward_function={"type": "citylearn.reward_function.ComfortReward",
+                         "attributes": {"band": 2.0, "lower_exponent": 2.0,
+                                        "higher_exponent": 3.0}})

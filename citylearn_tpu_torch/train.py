@@ -108,8 +108,10 @@ class TrainState:
 
 
 def _env_state_from(tree, dev) -> EnvState:
-    return EnvState(**{f.name: torch.tensor(np.asarray(getattr(tree, f.name)), device=dev)
-                       for f in dataclasses.fields(EnvState)})
+    t = lambda x: torch.tensor(np.asarray(x), device=dev)
+    return EnvState(**{f.name: tuple(t(x) for x in v) if isinstance(v, tuple) else t(v)
+                       for f in dataclasses.fields(EnvState)
+                       for v in (getattr(tree, f.name),)})
 
 
 def train_state_from_numpy(tree, lr: float = 3e-4, device=None) -> TrainState:
@@ -189,6 +191,9 @@ class BatchedSAC:
             raise ValueError("BatchedSAC trains per-building agents (decentralized)")
         self.env_cfg, self.params, self.layout = pack(self.spec, device=dev)
         check_supported(self.env_cfg)
+        if self.env_cfg.has_dynamics:
+            raise NotImplementedError(
+                "trainer action routing for cooling_device on an LSTM-dynamics district")
         B = self.env_cfg.n_buildings
 
         # --- observations: per-building encoders padded to a common width,
@@ -230,6 +235,10 @@ class BatchedSAC:
         # exceeds the episode length, each district rolls its own seeded
         # window (reference EpisodeTracker splits, base.py:76-129)
         self.max_offset = int(self.spec.simulation_time_steps - self.env_cfg.time_steps)
+        if self.env_cfg.has_stochastic_outage:
+            # the baked stochastic-outage signal covers the default window
+            # only (core/params.py): shifted windows would read zeros
+            self.max_offset = 0
 
         self.draws = StepDraws(seed, dev)
         self._init_state(seed)

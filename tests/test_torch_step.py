@@ -109,9 +109,9 @@ def test_rollout_districts_hour_rbc_matches_jax(dataset, central):
 def test_unsupported_configuration_raises(dataset):
     (cfg, params), _ = _both(dataset, "default", False)
     states = rollout.batched_initial_states(cfg, params, 1, device="cpu")
-    lstm = dataclasses.replace(cfg, has_dynamics=True)
-    with pytest.raises(NotImplementedError, match="has_dynamics"):
-        rollout.rollout_districts(lstm, params, states, 2, rollout.hour_rbc_policy(RBC),
+    occupants = dataclasses.replace(cfg, has_occupant=True)
+    with pytest.raises(NotImplementedError, match="has_occupant"):
+        rollout.rollout_districts(occupants, params, states, 2, rollout.hour_rbc_policy(RBC),
                                   device="cpu")
 
 
@@ -135,8 +135,9 @@ def test_district_step_matches_jax_from_each_state(dataset, central):
     _, (before, after, jout) = jax.jit(lambda s, a: jax.lax.scan(body, s, a))(
         jstate, jnp.asarray(actions))
     t = lambda x: torch.tensor(np.asarray(x))
-    states = EnvState(**{f.name: t(getattr(before, f.name))
-                         for f in dataclasses.fields(EnvState)})
+    states = EnvState(**{f.name: v if isinstance(v, tuple) else t(v)    # no dynamics: ()
+                         for f in dataclasses.fields(EnvState)
+                         for v in (getattr(before, f.name),)})
     nxt, out = district_step(cfg, params, states,
                              rollout.actions_dict_from_array(torch.tensor(actions)))
     pairs = {
