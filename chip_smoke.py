@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card and check them: the
 battery+PV district's evaluation (kernel K1) and training (K2), the
-thermal-storage district's evaluation (K3), the EV district's (K4) and
-the LSTM-dynamics district's (K5).
+thermal-storage district's evaluation (K3), the EV district's (K4), the
+LSTM-dynamics district's (K5) and the neighborhood districts' (K6 and the
+post-pass P6).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -89,7 +90,33 @@ Phases, each of which raises on failure:
      ``evaluate_districts`` at D=4096;
  20. times with CUDA events: K5 per launch and its bound, the same on the
      district with outages, the full-year ``evaluate_scripted`` and the
-     stepped LSTM path per step.
+     stepped LSTM path per step;
+ 21. write two seeded neighborhood districts (100 EULP-shaped buildings
+     whose LSTMs of 8 to 32 units in one or two layers read the cooling
+     demand, the heating demand or both, signed ``cooling_or_heating_device``
+     partial load, DHW heater and tank, battery, PV, the default reward: the
+     shape of ``ca_alameda_county_neighborhood``; and 20 quebec-shaped
+     occupant buildings with heating-side partial load, no battery and the
+     ComfortReward), compile and pack them on the card;
+ 22. kernel vs plain: K6 (``neighborhood_episode``) against its plain
+     PyTorch version at D=4096 over a spring quarter (2190 steps; timed over
+     the full year in phase 25) from per-district seeded states, all 7
+     outputs and 9 rows bit-equal; again on the quebec district (a null
+     battery) over 720 steps;
+ 23. kernel vs plain: P6 (``neighborhood_postpass``, the temperature and
+     occupant post-pass) against its plain version on K6's recorded demand
+     observations: the EULP district over 168 steps, the quebec district
+     over 720 steps with its inert decision trees replaced by a
+     hand-written tree so that triggers, holds and reversions run;
+     temperature within 2e-4 |T| + 5e-3 C, occupant decisions identical
+     except where the temperature's tolerance straddles one (counted);
+ 24. the neighborhood main path, with the launch counts reset just before
+     and read just after: ``evaluate_scripted`` at D=4096 over the full year
+     on the EULP district, one K6 and one P6 launch; then the kernel-backed
+     table against the stepped ``evaluate_districts`` on the quebec district
+     over 168 steps and on the EULP district over 48 steps;
+ 25. times with CUDA events: K6 per launch and its bound, P6 for the year
+     and its bound, the full-year ``evaluate_scripted``.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -99,18 +126,20 @@ writes every number measured to PATH. Without a CUDA card it exits 1.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
 from citylearn_tpu_torch.compiler.schema import compile_schema
 from citylearn_tpu_torch.core.evaluate import evaluate_districts
-from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
+from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted, kernel_family
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import batched_initial_states
 from citylearn_tpu_torch.core.rollout_fast import (
@@ -121,6 +150,8 @@ from citylearn_tpu_torch.core.rollout_fast import (
     ev_episode_inputs,
     lstm_episode_inputs,
     lstm_packable,
+    neighborhood_episode_inputs,
+    neighborhood_packable,
     thermal_episode_inputs,
 )
 from citylearn_tpu_torch.ops import _build
@@ -128,11 +159,14 @@ from citylearn_tpu_torch.ops import battery as k1
 from citylearn_tpu_torch.ops import collect as k2
 from citylearn_tpu_torch.ops import ev as k4
 from citylearn_tpu_torch.ops import lstm as k5
+from citylearn_tpu_torch.ops import neighborhood as k6
+from citylearn_tpu_torch.ops import postpass as p6
 from citylearn_tpu_torch.ops import thermal as k3
 from citylearn_tpu_torch.synthetic import (
     write_battery_pv_dataset,
     write_ev_dataset,
     write_lstm_dataset,
+    write_neighborhood_dataset,
     write_thermal_dataset,
 )
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
@@ -147,8 +181,14 @@ SHORT_STEPS = 168             # the kernel-vs-stepped table comparison
 # linear in the steps: they are compared over a quarter of it
 QUARTER_STEPS = 2190
 OUTAGE_STEPS = 720            # K5 against its plain version on the district with outages
+EULP_BUILDINGS = 100          # ca_alameda_county_neighborhood's buildings
+QUEBEC_BUILDINGS = 20         # the quebec neighborhoods' buildings
+SPRING = 2400                 # K6's quarter: from mid-April, hvac_mode 3 then 1
+QUEBEC_STEPS = 720            # K6 and P6 on the quebec district against their plain versions
+EULP_TABLE_STEPS = 48         # the EULP district's kernel-vs-stepped table (12 LSTM groups)
 PEAK_FP32 = 67e12             # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
+START = time.perf_counter()   # the phases print the seconds since
 # expected bit-equal (-fmad=false, IEEE div/sqrt); held to these errors
 # relative to each output's largest magnitude
 TOL_STEP = 1e-6               # per-step record and final state
@@ -213,7 +253,7 @@ def nvidia_smi(query="name,power.limit"):
 
 
 def phase(title):
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title} ({time.perf_counter() - START:.1f} s from the start)", flush=True)
 
 
 def scaled_error(a, b):
@@ -268,12 +308,12 @@ def check_table(table, lead, where, n_buildings=N_BUILDINGS):
             raise AssertionError(f"{where}: {k} is not finite: {v}")
 
 
-def table_error(fast, stepped, comfort_steps=0):
+def table_error(fast, stepped, comfort_steps=0, steps=SHORT_STEPS):
     """Largest error of the kernel-backed KPI table against the stepped
     one, relative to max(|value|, 1); raises beyond ``TOL_TABLE``. The
     discomfort and resilience KPIs, which count or average the steps
     beyond a comfort threshold, may also move by ``comfort_steps`` steps
-    in ``SHORT_STEPS`` (their own largest error is returned second)."""
+    in ``steps`` (their own largest error is returned second)."""
     worst = worst_comfort = 0.0
     for k in fast:
         a, b = fast[k], stepped[k]
@@ -285,12 +325,12 @@ def table_error(fast, stepped, comfort_steps=0):
         name = k.split("|")[1]
         if comfort_steps and name.startswith(("discomfort", "one_minus_thermal_resilience")):
             worst_comfort = max(worst_comfort, err)
-            tol = TOL_TABLE + comfort_steps / SHORT_STEPS
+            tol = TOL_TABLE + comfort_steps / steps
         else:
             worst = max(worst, err)
             tol = TOL_TABLE
         if not err <= tol:
-            raise AssertionError(f"kernel vs stepped table at S={SHORT_STEPS}: {k} {err}")
+            raise AssertionError(f"kernel vs stepped table at S={steps}: {k} {err}")
     return (worst, worst_comfort) if comfort_steps else worst
 
 
@@ -825,6 +865,319 @@ def lstm_path(dev, results):
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None}
 
+def neighborhood_plans():
+    """Hour tables of the JAX package's neighborhood bench row
+    (``bench.py:229-234``) and of its quebec tests: the signed device
+    action heats by morning and cools from noon, the heating device runs
+    gently, the battery in the manner of BasicRBC."""
+    hours = range(1, 25)
+    return {"cooling_or_heating_device": [0.6 if h < 12 else -0.5 for h in hours],
+            "heating_device": [0.3 if h < 8 else 0.1 for h in hours],
+            "electrical_storage": [0.091 if h < 9 else -0.08 for h in hours]}
+
+
+def hand_set_trees(cfg, params):
+    """The quebec district with a hand-written tree in place of each
+    building's inert ones, for both the increase and the decrease model:
+    the root splits on (previous temperature - previous set point) at 0,
+    its left child on the current set point at 21 C; every leaf asks for a
+    change of 0.5 or 1.5 C. With the tree files absent from the card,
+    this is what makes the occupants' triggers, holds and reversions run."""
+    dev = params.device
+    nodes = lambda rows, dtype: torch.tensor([rows, rows], dtype=dtype, device=dev).expand(
+        cfg.n_buildings, 2, 5).contiguous()
+    occ = dataclasses.replace(
+        params.occupant,
+        tree_feature=nodes([2, 0, -2, -2, -2], torch.int32),
+        tree_children_left=nodes([1, 3, -1, -1, -1], torch.int32),
+        tree_children_right=nodes([2, 4, -1, -1, -1], torch.int32),
+        tree_threshold=nodes([0.0, 21.0, 0.0, 0.0, 0.0], torch.float32),
+        tree_delta=nodes([0.0, 0.0, 0.5, 1.5, 0.5], torch.float32))
+    return (dataclasses.replace(cfg, occupant_tree_depth=2),
+            dataclasses.replace(params, occupant=occ))
+
+
+def near_decisions(cfg, params, temp, csp, hsp, off):
+    """(S, B) mask of the steps at which an occupant decision of the plain
+    run lies within the temperature's tolerance: the interaction
+    probability at T +- (TEMP_RTOL |T| + TEMP_ATOL) straddles the step's
+    uniform draw, or the tree feature (previous temperature - previous set
+    point) lies that close to a threshold it is compared with."""
+    occ = params.occupant
+    S = temp.shape[0]
+    tol = TEMP_RTOL * temp.abs() + TEMP_ATOL
+    rp = occ.random_probability[:S, None]
+    straddles = torch.zeros_like(temp, dtype=torch.bool)
+    for a, b in ((occ.a_increase, occ.b_increase), (occ.a_decrease, occ.b_decrease)):
+        lo, hi = (torch.sigmoid(a[:S] + b[:S] * (temp + sign * tol)) for sign in (-1.0, 1.0))
+        straddles |= (torch.minimum(lo, hi) <= rp) & (rp <= torch.maximum(lo, hi))
+    ser = params.series
+    end = off + cfg.time_steps - 1
+    mode = ser.hvac_mode[off:off + S]
+    prev_t = torch.cat([ser.indoor_dry_bulb_temperature[end][None], temp[:-1]])
+    prev_c = torch.cat([ser.indoor_dry_bulb_temperature_cooling_set_point[end][None], csp[:-1]])
+    prev_h = torch.cat([ser.indoor_dry_bulb_temperature_heating_set_point[end][None], hsp[:-1]])
+    feature = prev_t - torch.where(mode == 2, prev_h, prev_c)
+    prev_tol = torch.cat([tol[:1], tol[:-1]])
+    split = occ.tree_feature == 2                              # (B, 2, N)
+    thresholds = torch.where(split, occ.tree_threshold, torch.full_like(occ.tree_threshold,
+                                                                         float("inf")))
+    gap = (feature[:, :, None, None] - thresholds[None]).abs().amin(dim=(2, 3))
+    return straddles | (gap <= prev_tol)
+
+
+def compare_postpass(label, cfg, params, cool, heat, n_steps, off):
+    """P6 against its plain version on one district's demand observations:
+    temperature within TEMP_RTOL |T| + TEMP_ATOL; the set-point series
+    and the occupants' final state equal, except that a building may part
+    from the plain run at a step where the temperature's tolerance
+    straddles a decision (``near_decisions``), after which its set points
+    are not compared. Returns (kernel outputs, plain outputs, temperature
+    max |diff|, buildings parted at such steps, the plain version's ms)."""
+    ours = p6.neighborhood_postpass(cfg, params, cool, heat, n_steps, off)
+    ref, plain_ms = timed_once(lambda: p6.neighborhood_postpass_reference(
+        cfg, params, cool, heat, n_steps, off))
+    temp, ref_temp = ours[0], ref[0]
+    if not torch.isfinite(temp).all():
+        raise AssertionError(f"P6 put out a non-finite temperature ({label})")
+    temp_err = float((temp - ref_temp).abs().max())
+    if not ((temp - ref_temp).abs() <= TEMP_RTOL * ref_temp.abs() + TEMP_ATOL).all():
+        raise AssertionError(f"P6 temperature disagrees with its plain version ({label}): "
+                             f"{temp_err:.3e}")
+    differ = (ours[1] != ref[1]) | (ours[2] != ref[2])
+    parted = 0
+    if cfg.has_occupant:
+        near = near_decisions(cfg, params, ref_temp, ref[1], ref[2], off)
+        # the carried set points, overrides and counter must be equal; the
+        # carried temperature is held to the temperature's tolerance
+        exact = ("occ_csp_override", "occ_hsp_override", "occ_hold_counter", "occ_prev_csp",
+                 "occ_prev_hsp")
+        final = torch.stack([(a != b) & ~(a.isnan() & b.isnan()) for a, b in (
+            (getattr(ours[3], k), getattr(ref[3], k)) for k in exact)]).any(0)[0]
+        prev_t, ref_prev_t = ours[3].occ_prev_temp, ref[3].occ_prev_temp
+        final |= ((prev_t - ref_prev_t).abs() > TEMP_RTOL * ref_prev_t.abs() + TEMP_ATOL)[0]
+        for b in range(cfg.n_buildings):
+            steps = differ[:, b].nonzero()
+            if len(steps) == 0:
+                if final[b]:
+                    raise AssertionError(f"P6 occupant state of building {b} differs ({label})")
+                continue
+            first = int(steps[0])
+            if not bool(near[first, b]):
+                raise AssertionError(f"P6 occupant decision of building {b} at step {first} "
+                                     f"differs away from any threshold ({label})")
+            parted += 1
+    elif differ.any():
+        raise AssertionError(f"P6 set points differ without occupants ({label})")
+    print(f"{label}: temperature max|diff| {temp_err:.3e} C (tolerance {TEMP_RTOL:g} |T| + "
+          f"{TEMP_ATOL:g}); set points equal"
+          + (f" except in {parted} buildings parted at a step within the temperature's "
+             f"tolerance of a decision" if cfg.has_occupant else "")
+          + f"; plain {plain_ms:.0f} ms for {n_steps} steps")
+    return ours, ref, temp_err, parted, plain_ms
+
+
+def neighborhood_path(dev, results):
+    """Phases 21-25: the neighborhood districts through K6 and the
+    post-pass P6. Returns the entries of both in the ``kernels`` line."""
+    phase("21. neighborhood datasets, compile, pack")
+    packed = {}
+    for name, kw in (("eulp", dict(n_buildings=EULP_BUILDINGS)),
+                     ("quebec", dict(n_buildings=QUEBEC_BUILDINGS, quebec=True))):
+        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+            warnings.simplefilter("ignore")           # the quebec trees are absent
+            schema = write_neighborhood_dataset(tmp, n_rows=N_ROWS, seed=SEED, **kw)
+            packed[name] = pack(compile_schema(schema), device=dev)[:2]
+        if not neighborhood_packable(*packed[name]) \
+                or kernel_family(packed[name][0]) != "neighborhood":
+            raise AssertionError(f"the synthetic {name} district is not on the neighborhood "
+                                 f"kernel")
+    cfg, params = packed["eulp"]
+    qcfg, qparams = packed["quebec"]
+    B, S = cfg.n_buildings, cfg.time_steps - 1
+    print(f"EULP shape: {B} buildings, {cfg.time_steps} rows, reward {cfg.reward_type}, "
+          f"{len(cfg.dyn_groups)} LSTM groups {sorted({g[1:3] for g in cfg.dyn_groups})}, "
+          f"channel widths summing to {sum(g[3] for g in cfg.dyn_groups)}; quebec shape: "
+          f"{qcfg.n_buildings} buildings, reward {qcfg.reward_type}, occupants "
+          f"{qcfg.has_occupant}, battery capacity {float(qparams.battery.capacity.max())}")
+    tables = neighborhood_plans()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def seeded_inputs(cfg_, params_, n_steps=None, data_offset=0):
+        """K6's inputs with states that differ from district to district."""
+        inputs = neighborhood_episode_inputs(cfg_, params_, D, tables, n_steps=n_steps,
+                                             data_offset=data_offset)
+        rand = lambda lo, hi: lo + (hi - lo) * torch.rand((D, cfg_.n_buildings), generator=gen,
+                                                          device=dev)
+        inputs.update(dsoc0=rand(0.0, 1.0), soc0=rand(0.0, 1.0), eff0=rand(0.85, 0.95),
+                      deg0=(inputs["bparams"][0] * rand(0.9, 1.0)).contiguous())
+        return inputs
+
+    def compare_k6(label, inputs):
+        ours = k6.neighborhood_episode(**inputs, record=True)
+        ref, plain_ms = timed_once(lambda: k6.neighborhood_episode_reference(**inputs,
+                                                                            record=True))
+        worst = 0.0
+        names = ("reward", "cost", "emission", "dhw_soc", "soc", "eff", "deg", "record")
+        for name, a, b in zip(names, ours, ref):
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"K6 {name} is not bit-equal to its plain version "
+                                     f"({label}): max|diff| {float((a - b).abs().max()):.3e}")
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K6 {name} is not finite ({label})")
+        print(f"{label}: 7 outputs and {k6.N_NREC} rows bit-equal; plain {plain_ms:.0f} ms")
+        return ours, worst, plain_ms
+
+    phase(f"22. K6 vs plain at D={D}, B={B}, S={QUARTER_STEPS} (a spring quarter)")
+    quarter = seeded_inputs(cfg, params, QUARTER_STEPS, SPRING)
+    ours, k6_err, k6_plain_ms = compare_k6("EULP quarter", quarter)
+    rec = ours[7]
+    series = quarter["series"]
+    lookback = quarter["lookback"]
+    happened = {
+        "partial-load cooling": not torch.equal(rec[k6.R_CDEM][lookback + 1:],
+                                                series[4][lookback + 1:]),
+        "partial-load heating": not torch.equal(rec[k6.R_HDEM][lookback + 1:],
+                                                series[5][lookback + 1:]),
+        "the data's demand before the window is full": torch.equal(
+            rec[k6.R_HDEM][:lookback + 1], series[5][:lookback + 1]),
+        "hvac modes 1 and 3": {1.0, 3.0} <= set(series[8].unique().tolist()),
+        "a battery charge and discharge": (rec[k6.R_BBAL] > 0).any()
+        and (rec[k6.R_BBAL] < 0).any(),
+        "the DHW tank decaying": (rec[k6.R_DSOC][1:] < rec[k6.R_DSOC][:-1]).any(),
+        "a heating device that is not a heat pump": (quarter["nparams"][k6.HHP] < 0.5).any(),
+        "districts that differ": not torch.equal(ours[1][0], ours[1][1]),
+    }
+    missing = [k for k, v in happened.items() if not bool(v)]
+    if missing:
+        raise AssertionError(f"the neighborhood episode never saw: {missing}")
+    print(f"seen over the quarter: {', '.join(happened)}")
+    quebec_in = seeded_inputs(qcfg, qparams, QUEBEC_STEPS)
+    quebec_out, err, _ = compare_k6(f"quebec, null battery, {QUEBEC_STEPS} steps", quebec_in)
+    k6_err = max(k6_err, err)
+    if float(quebec_out[7][k6.R_BBAL].abs().max()) != 0.0:
+        raise AssertionError("the null battery moved")
+
+    phase("23. P6 vs plain on K6's recorded demand observations")
+    first = lambda r, n: (r[k6.R_COUT][:n].contiguous(), r[k6.R_HOUT][:n].contiguous())
+    _, _, p6_err, _, p6_plain_ms = compare_postpass(
+        f"EULP, {SHORT_STEPS} steps", cfg, params, *first(rec, SHORT_STEPS), SHORT_STEPS,
+        SPRING)
+    tcfg, tparams = hand_set_trees(qcfg, qparams)
+    q_ours, q_ref, err, parted, _ = compare_postpass(
+        f"quebec with hand-set trees, {QUEBEC_STEPS} steps", tcfg, tparams,
+        *first(quebec_out[7], QUEBEC_STEPS), QUEBEC_STEPS, 0)
+    p6_err = max(p6_err, err)
+    data = tparams.series.indoor_dry_bulb_temperature_heating_set_point[:QUEBEC_STEPS]
+    moved = q_ref[2] != data
+    counts = dict(overridden_steps=int(moved.sum()),
+                  reversions=int((moved[:-1] & ~moved[1:]).sum()),
+                  increases=int((q_ref[2] > data).sum()), decreases=int((q_ref[2] < data).sum()))
+    if not all(counts.values()):
+        raise AssertionError(f"the occupants never acted in full: {counts}")
+    print(f"quebec occupants (plain run): {counts}; buildings parted at a near-threshold "
+          f"step: {parted} of {qcfg.n_buildings}")
+
+    phase("24. neighborhood main path")
+    policy = ScriptedPolicy(tables)
+    k6.neighborhood_episode.launches = 0
+    p6.postpass_kernel.launches = 0
+    t0 = time.perf_counter()
+    table = evaluate_scripted(cfg, params, policy, n_districts=D, device=dev)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = k6.neighborhood_episode.launches
+    p6_launches = p6.postpass_kernel.launches
+    print(f"K6 launches on the main path: {launches}; P6 launches: {p6_launches} "
+          f"({main_s:.2f} s)")
+    if launches != 1 or p6_launches != 1:
+        raise AssertionError("evaluate_scripted did not run one K6 and one P6 launch")
+    check_table(table, (), "neighborhood evaluate_scripted", B)
+    worst = {}
+    for name, (c, p), n in (("quebec", (qcfg, qparams), SHORT_STEPS),
+                            ("EULP", (cfg, params), EULP_TABLE_STEPS)):
+        states = batched_initial_states(c, p, 8, device=dev)
+        fast = evaluate_districts(c, p, states, policy, n_steps=n, device=dev)
+        t0 = time.perf_counter()
+        stepped = evaluate_districts(c, p, states, policy.as_policy_fn(c, p, n), n_steps=n,
+                                     device=dev)
+        torch.cuda.synchronize()
+        results[f"{name.lower()}_stepped_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n
+        worst[name] = table_error(fast, stepped, COMFORT_STEPS, n)
+        print(f"{name}: kernel vs stepped KPI table at S={n}, D=8: max error "
+              f"{worst[name][0]:.3e} (tolerance {TOL_TABLE:g}); discomfort and resilience KPIs "
+              f"{worst[name][1]:.3e} (tolerance {COMFORT_STEPS} steps in {n}); stepped "
+              f"{results[f'{name.lower()}_stepped_ms_per_step']:.1f} ms per step")
+    print("full-year district KPIs:")
+    for k, v in table.items():
+        if k.startswith("district|"):
+            print(f"  {k[9:]:48s} {float(v):.6f}")
+
+    phase("25. neighborhood times")
+    year = neighborhood_episode_inputs(cfg, params, D, tables)
+    kernel_ms = time_cuda(lambda: k6.neighborhood_episode(**year, record=True), 5)
+    out = k6.neighborhood_episode(**year, record=True)
+    if not all(torch.isfinite(x).all() for x in out):
+        raise AssertionError("K6 put out a non-finite value over the year")
+    n_knots = year["curves"][0].shape[0]
+    n_bytes = tensor_bytes(year) + tensor_bytes(out)
+    n_ops = k6.operation_count(year["actions"], n_knots, D)
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    post = p6.postpass_inputs(cfg, params, out[7][k6.R_COUT][:, :].contiguous(),
+                              out[7][k6.R_HOUT].contiguous(), S)
+    p6_ms = time_cuda(lambda: p6.postpass_kernel(**post), 1)
+    p6_out = p6.postpass_kernel(**post)
+    if not torch.isfinite(p6_out[0]).all():
+        raise AssertionError("P6 put out a non-finite temperature over the year")
+    p6_bytes = tensor_bytes(post) + tensor_bytes(p6_out[:3])
+    p6_ops = p6.operation_count(post["weights"], post["lookback"], S)
+    p6_bytes_ms, p6_ops_ms = p6_bytes / PEAK_BYTES * 1e3, p6_ops / PEAK_FP32 * 1e3
+    p6_bound_ms = max(p6_bytes_ms, p6_ops_ms)
+    eval_ms = time_cuda(lambda: evaluate_scripted(cfg, params, policy, n_districts=D,
+                                                  device=dev), 1)
+    power = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    print(f"K6 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s); "
+          f"plain {k6_plain_ms:.2f} ms for {QUARTER_STEPS} steps; bound {bound_ms:.4f} ms "
+          f"({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> {bytes_ms:.5f} ms), "
+          f"share of bound {bound_ms / kernel_ms:.2%}; build: "
+          f"{results.get('ptxas', {}).get('neighborhood_episode')}")
+    print(f"P6 {p6_ms:.2f} ms for the year of {B} buildings; plain {p6_plain_ms:.2f} ms for "
+          f"{SHORT_STEPS} steps; bound {p6_bound_ms:.4f} ms ({p6_ops:.4g} fp32 ops -> "
+          f"{p6_ops_ms:.4f} ms, {p6_bytes} bytes -> {p6_bytes_ms:.5f} ms), share of bound "
+          f"{p6_bound_ms / p6_ms:.3%}; build: "
+          f"{results.get('ptxas', {}).get('neighborhood_postpass')}")
+    print(f"evaluate_scripted full year at D={D}: {eval_ms:.3f} ms; nvidia-smi sm clock, draw, "
+          f"limit, temp: {power}")
+    results.update(
+        k6_ms=kernel_ms, k6_plain_ms=k6_plain_ms, k6_plain_steps=QUARTER_STEPS,
+        k6_bound_ms=bound_ms, k6_bound_ops=n_ops, k6_bound_bytes=n_bytes, k6_max_abs_err=k6_err,
+        k6_launches=launches, k6_district_steps_per_s=D * S / kernel_ms * 1e3,
+        p6_ms=p6_ms, p6_plain_ms=p6_plain_ms, p6_plain_steps=SHORT_STEPS,
+        p6_bound_ms=p6_bound_ms, p6_bound_ops=p6_ops, p6_bound_bytes=p6_bytes,
+        p6_max_abs_err=p6_err, p6_launches=p6_launches, p6_quebec_parted=parted,
+        p6_quebec_occupants=counts, neighborhood_table_error=worst,
+        neighborhood_evaluate_scripted_ms=eval_ms, neighborhood_main_path_s=main_s,
+        neighborhood_district_kpis={k: float(v) for k, v in table.items()
+                                    if k.startswith("district|")},
+        neighborhood_smi_after=power)
+    return [{
+        "name": "neighborhood_episode", "route": "cuda",
+        "source": "citylearn_tpu_torch/csrc/neighborhood_episode.cu",
+        "replaces": "citylearn_tpu/ops/pallas_neighborhood.py:309",
+        "launches": launches, "max_abs_err": k6_err, "ms": kernel_ms,
+        "plain_ms": k6_plain_ms, "plain_steps": QUARTER_STEPS, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None}, {
+        "name": "neighborhood_postpass", "route": "cuda",
+        "source": "citylearn_tpu_torch/csrc/neighborhood_postpass.cu",
+        "replaces": "citylearn_tpu/core/neighborhood_eval.py:45 (an XLA scan, no Pallas kernel)",
+        "launches": p6_launches, "max_abs_err": p6_err, "ms": p6_ms,
+        "plain_ms": p6_plain_ms, "plain_steps": SHORT_STEPS, "bound_ms": p6_bound_ms,
+        "bound_by": "bytes" if p6_bytes_ms > p6_ops_ms else "operations",
+        "library_ms": None}]
+
 
 def main(json_path=None):
     if not torch.cuda.is_available():
@@ -1076,6 +1429,7 @@ def main(json_path=None):
     thermal_kernel = thermal_path(dev, results)
     ev_kernel = ev_path(dev, results)
     lstm_kernel = lstm_path(dev, results)
+    neighborhood_kernels = neighborhood_path(dev, results)
 
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",
@@ -1091,7 +1445,7 @@ def main(json_path=None):
         "launches": k2_launches, "max_abs_err": k2_max_abs, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
-        "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel]}
+        "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if json_path:

@@ -3,11 +3,11 @@
 The counterpart of ``citylearn_tpu.compiler.schema`` for the districts
 the port carries (battery+PV, thermal storage, EV chargers with
 electric vehicles, washing machines and charging constraints, and LSTM
-temperature dynamics with power outages): the same device resolution,
-series defaults, noise stream and observation/action surface, with CSVs
-read by the standard ``csv`` module instead of pandas. Schema blocks
-outside those districts raise ``NotImplementedError`` naming the block:
-occupants and autosizing. Missing HVAC devices and tanks
+temperature dynamics with power outages, and occupant thermostat
+interaction): the same device resolution, series defaults, noise stream
+and observation/action surface, with CSVs read by the standard ``csv``
+module instead of pandas. Schema blocks outside those districts raise
+``NotImplementedError`` naming the block: autosizing. Missing HVAC devices and tanks
 resolve to the same inert defaults as in the JAX package.
 """
 
@@ -37,6 +37,7 @@ from citylearn_tpu_torch.compiler.spec import (
     DynamicsSpec,
     ElectricVehicleSpec,
     HVACDeviceSpec,
+    OccupantSpec,
     StorageTankSpec,
     WashingMachineSpec,
 )
@@ -274,6 +275,63 @@ def _load_dynamics(block: dict, root: str) -> DynamicsSpec:
     return spec
 
 
+def _load_occupant(block: dict, root: str, sim_start: int, sim_end: int) -> OccupantSpec:
+    """Parse an occupant block: the logistic parameters CSV and the two
+    pickled ``DecisionTreeClassifier``s flattened to node arrays
+    (reference ``citylearn.py:2230-2250``, ``occupant.py:18-99``).
+    Unpickling the trees needs scikit-learn, imported by ``pickle`` only
+    when a tree file is present."""
+    import pickle
+    import warnings
+
+    attrs = dict(block.get("attributes") or {})
+    params = read_csv_columns(os.path.join(root, block["parameters_filename"]))
+    sl = slice(sim_start, sim_end + 1)
+    delta_map = {int(k): float(v) for k, v in (attrs.get("delta_output_map") or {}).items()}
+
+    def flatten_tree(path):
+        if not os.path.exists(path):
+            # the bundled quebec datasets ship without the pickled trees
+            # (the reference crashes outright); degrade to an inert
+            # single-leaf tree predicting delta 0
+            warnings.warn(f"occupant model {os.path.basename(path)} missing; "
+                          "using inert tree (delta 0)")
+            return (np.asarray([-1], np.int32), np.asarray([-1], np.int32),
+                    np.asarray([-2], np.int32), np.asarray([0.0], np.float32),
+                    np.asarray([0.0], np.float32), 1)
+        with open(path, "rb") as f:
+            clf = pickle.load(f)
+        t = clf.tree_
+        classes = clf.classes_
+        delta = np.zeros(t.node_count, np.float32)
+        for node in range(t.node_count):
+            cls = classes[int(np.argmax(t.value[node]))]
+            delta[node] = delta_map.get(int(cls), 0.0)
+        return (t.children_left.astype(np.int32), t.children_right.astype(np.int32),
+                t.feature.astype(np.int32), t.threshold.astype(np.float32),
+                delta, int(t.max_depth))
+
+    inc = flatten_tree(os.path.join(root, attrs["setpoint_increase_model_filename"]))
+    dec = flatten_tree(os.path.join(root, attrs["setpoint_decrease_model_filename"]))
+    n = max(len(inc[0]), len(dec[0]))
+    pad = lambda a, fill: np.pad(a, (0, n - len(a)), constant_values=fill)
+    column = lambda name: params[name].astype(np.float32)[sl]
+    hold = attrs.get("set_point_hold_time_steps")
+    return OccupantSpec(
+        a_increase=column("a_increase"),
+        b_increase=column("b_increase"),
+        a_decrease=column("a_decrease"),
+        b_decrease=column("b_decrease"),
+        tree_children_left=np.stack([pad(inc[0], -1), pad(dec[0], -1)]),
+        tree_children_right=np.stack([pad(inc[1], -1), pad(dec[1], -1)]),
+        tree_feature=np.stack([pad(inc[2], -2), pad(dec[2], -2)]),
+        tree_threshold=np.stack([pad(inc[3], 0.0), pad(dec[3], 0.0)]),
+        tree_delta=np.stack([pad(inc[4], 0.0), pad(dec[4], 0.0)]),
+        max_depth=max(inc[5], dec[5]),
+        set_point_hold_time_steps=(2 ** 30 if hold is None else int(hold)),
+    )
+
+
 def _unsupported(block: str, building: str = None):
     where = f" (building {building})" if building else ""
     raise NotImplementedError(
@@ -467,9 +525,14 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
                 raise NotImplementedError(
                     f"building type {b_type} with dynamics not yet supported")
             dynamics = _load_dynamics(b_schema["dynamics"], root)
+        occupant = None
         if b_schema.get("occupant") is not None and type_name == \
                 "LogisticRegressionOccupantInteractionBuilding":
-            _unsupported("occupant", b_name)
+            occupant = _load_occupant(b_schema["occupant"], root, sim_start, sim_end)
+            hold = (b_schema.get("set_point_hold_time_steps")
+                    or (b_schema.get("attributes") or {}).get("set_point_hold_time_steps"))
+            if hold is not None:
+                occupant.set_point_hold_time_steps = int(hold)
         power_outage_cfg = b_schema.get("power_outage") or {}
         simulate_outage = bool(power_outage_cfg.get("simulate_power_outage", False))
         stochastic_outage = bool(power_outage_cfg.get("stochastic_power_outage", False))
@@ -705,6 +768,7 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
             stochastic_power_outage=stochastic_outage,
             stochastic_power_outage_model=power_outage_cfg.get("stochastic_power_outage_model"),
             dynamics=dynamics,
+            occupant=occupant,
             chargers=chargers,
             washing_machines=washing_machines,
             charging_constraints=b_schema.get("charging_constraints"),

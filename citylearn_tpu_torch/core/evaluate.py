@@ -20,14 +20,14 @@ ideal demand (zero without dynamics buildings).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.core import hvac, kpi
 from citylearn_tpu_torch.core.params import initial_state
-from citylearn_tpu_torch.core.rollout_fast import lstm_packable
+from citylearn_tpu_torch.core.rollout_fast import lstm_packable, neighborhood_packable
 from citylearn_tpu_torch.core.step import check_supported, district_step
 from citylearn_tpu_torch.core.types import DistrictParams, EnvState, StaticConfig, flatten
 
@@ -96,11 +96,15 @@ def collect_episode(cfg: StaticConfig, params: DistrictParams,
 
 def kpi_table(cfg: StaticConfig, params: DistrictParams,
               collected: Dict[str, torch.Tensor], start_tau: torch.Tensor,
-              baseline_condition: str = "_without_storage") -> Dict[str, torch.Tensor]:
+              baseline_condition: str = "_without_storage",
+              final_state: Optional[EnvState] = None) -> Dict[str, torch.Tensor]:
     """Normalized KPI dict for a district batch from collected (S, D, B)
     series; ``start_tau`` (D,) is the sim-range row of each district's
     first collected step. Returns ``building|<kpi>`` -> (D, B) and
-    ``district|<kpi>`` -> (D,).
+    ``district|<kpi>`` -> (D,). ``final_state`` (any object with the
+    ``occ_*`` overrides, (D, B)) is the state after the last step: on an
+    occupant district its live set-point overrides patch the final,
+    unwritten row.
 
     Reproduces the host ``evaluate()`` including its series-length quirk:
     the control district series has S rows (one per step taken) while
@@ -171,10 +175,17 @@ def kpi_table(cfg: StaticConfig, params: DistrictParams,
     # are raw (un-normalized) values like the host table
     indoor = torch.cat([collected["indoor_t"],
                         win(ser.indoor_dry_bulb_temperature)[-1:]])
-    csp = torch.cat([collected["cooling_sp"],
-                     win(ser.indoor_dry_bulb_temperature_cooling_set_point)[-1:]])
-    hsp = torch.cat([collected["heating_sp"],
-                     win(ser.indoor_dry_bulb_temperature_heating_set_point)[-1:]])
+    csp_end = win(ser.indoor_dry_bulb_temperature_cooling_set_point)[-1:]
+    hsp_end = win(ser.indoor_dry_bulb_temperature_heating_set_point)[-1:]
+    if cfg.has_occupant and final_state is not None:
+        # the host patches the final unwritten row's set points with the
+        # live occupant override where one is active (the reference's
+        # occupant mutation, building.py:3248-3353, writes from t on)
+        live = lambda ov, end: torch.where(torch.isfinite(ov), ov, end)
+        csp_end = live(final_state.occ_csp_override, csp_end)
+        hsp_end = live(final_state.occ_hsp_override, hsp_end)
+    csp = torch.cat([collected["cooling_sp"], csp_end])
+    hsp = torch.cat([collected["heating_sp"], hsp_end])
     band_w = win(ser.comfort_band)
     occ_w = win(ser.occupant_count)
     outage_w = win(ser.power_outage)
@@ -233,8 +244,9 @@ def evaluate_districts_fn(cfg: StaticConfig, policy_fn: Callable,
 
     def run(params, states):
         start = states.data_offset + states.t
-        _, collected = collect_episode(cfg, params, states, policy_fn, S)
-        return kpi_table(cfg, params, collected, start, baseline_condition)
+        final, collected = collect_episode(cfg, params, states, policy_fn, S)
+        return kpi_table(cfg, params, collected, start, baseline_condition,
+                         final_state=final)
 
     return run
 
@@ -277,6 +289,8 @@ def evaluate_districts(cfg: StaticConfig, params: DistrictParams,
         off0 = int(states.data_offset[0])
         if family == "lstm" and not lstm_packable(cfg, params):
             family = None           # the stepped path serves an unpackable district
+        if family == "neighborhood" and not neighborhood_packable(cfg, params):
+            family = None
         if off0 and cfg.has_stochastic_outage:
             family = None           # needs a signal the caller rebaked; stepped path
         if family is not None and _is_fresh(cfg, params, states):

@@ -6,7 +6,9 @@ per-step series the env accumulated while stepping. For a kernel-eligible
 district (battery+PV, the 2022 family; cooling and DHW storage plus
 battery, the 2021 family; battery+PV with EV chargers and washing
 machines, the plus_evs family; LSTM temperature dynamics with partial-load
-cooling and power outages, the 2023 family) under an *open-loop* policy (hour-indexed
+cooling and power outages, the 2023 family; the EULP neighborhoods and the
+quebec occupant sets, whose temperature and set points come from a
+single-district post-pass) under an *open-loop* policy (hour-indexed
 RBC tables or per-target per-step plans), the episode runs as ONE kernel
 launch recording district 0's per-step series (net, balances, SOCs,
 device outputs); every other KPI input is data-driven, so the recorded
@@ -29,10 +31,12 @@ import torch
 from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.core import hvac, rollout_fast
 from citylearn_tpu_torch.core.evaluate import kpi_table, window
+from citylearn_tpu_torch.core.neighborhood_eval import temp_setpoint_series
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS
 from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
 from citylearn_tpu_torch.ops import ev as ev_ops
 from citylearn_tpu_torch.ops import lstm as lstm_ops
+from citylearn_tpu_torch.ops import neighborhood as nb_ops
 from citylearn_tpu_torch.ops.thermal import R_BBAL, R_CBAL, R_COUT, R_DBAL, R_DOUT, R_NET
 
 #: non-building-axis action classes (per-charger / per-machine plans)
@@ -157,6 +161,8 @@ def kernel_family(cfg: StaticConfig) -> Optional[str]:
         return "lstm"
     if rollout_fast.eligible_ev(cfg):
         return "ev"
+    if rollout_fast.eligible_neighborhood(cfg):
+        return "neighborhood"
     return None
 
 
@@ -167,14 +173,28 @@ def _with_t0_double(bal: torch.Tensor) -> torch.Tensor:
 
 
 def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch.Tensor,
-              off: int, baseline_condition: str) -> Dict[str, torch.Tensor]:
+              off: int, baseline_condition: str, postpass=None) -> Dict[str, torch.Tensor]:
     """KPI dict for one district from the kernel's recorded (rows, S, B)
-    stream and the data series of the episode window ``[off, off + S)``."""
+    stream and the data series of the episode window ``[off, off + S)``;
+    on the neighborhood family ``postpass`` holds the temperature, the two
+    set-point series and the final occupant state of
+    :func:`core.neighborhood_eval.temp_setpoint_series`."""
     S = rec.shape[1]
     ser = params.series
     start = torch.tensor([off], device=rec.device)
     w = lambda arr: window(arr, start, S)                    # (S, 1, B)
-    if family == "battery":
+    final_state = None
+    if family == "neighborhood":
+        net = rec[nb_ops.R_NET]
+        # every tank is inert on this family (neighborhood_packable): the
+        # storage consumption is the battery's alone (building.py:345-366)
+        storage = _with_t0_double(rec[nb_ops.R_BBAL])
+        served = (rec[nb_ops.R_COUT] + rec[nb_ops.R_HOUT] + rec[nb_ops.R_DOUT])[:, None] \
+            + w(ser.non_shiftable_load)
+        temp, csp, hsp, final_state = postpass
+        indoor_t, cooling_sp, heating_sp = temp[:, None], csp[:, None], hsp[:, None]
+        cool_act, heat_act = rec[nb_ops.R_CDEM][:, None], rec[nb_ops.R_HDEM][:, None]
+    elif family == "battery":
         net, storage = rec[0], _with_t0_double(rec[1])
         served = w(ser.non_shiftable_load)
     elif family == "ev":
@@ -197,6 +217,16 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch
                    else w(ser.non_shiftable_load))
         served = (rec[R_COUT] + torch.clamp(-rec[R_CBAL], min=0.0)
                   + rec[R_DOUT] + torch.clamp(-rec[R_DBAL], min=0.0))[:, None] + nsl_met
+    if family != "neighborhood":
+        # the LSTM kernel records the predicted temperature and the
+        # partial-load demand; elsewhere both are data
+        indoor_t = (rec[lstm_ops.R_TEMP][:, None] if family == "lstm"
+                    else w(ser.indoor_dry_bulb_temperature))
+        cooling_sp = w(ser.indoor_dry_bulb_temperature_cooling_set_point)
+        heating_sp = w(ser.indoor_dry_bulb_temperature_heating_set_point)
+        cool_act = (rec[lstm_ops.R_CDEM][:, None] if family == "lstm"
+                    else w(ser.cooling_demand))
+        heat_act = w(ser.heating_demand)
     net = net[:, None]
     pricing = w(ser.electricity_pricing)
     carbon = w(ser.carbon_intensity)
@@ -208,18 +238,14 @@ def _assemble(cfg: StaticConfig, params: DistrictParams, family: str, rec: torch
         solar=-w(ser.solar_generation),
         pricing=pricing,
         carbon=carbon,
-        # the LSTM kernel records the predicted temperature and the
-        # partial-load demand; elsewhere both are data
-        indoor_t=(rec[lstm_ops.R_TEMP][:, None] if family == "lstm"
-                  else w(ser.indoor_dry_bulb_temperature)),
-        cooling_sp=w(ser.indoor_dry_bulb_temperature_cooling_set_point),
-        heating_sp=w(ser.indoor_dry_bulb_temperature_heating_set_point),
-        cooling_demand_actual=(rec[lstm_ops.R_CDEM][:, None] if family == "lstm"
-                               else w(ser.cooling_demand)),
-        heating_demand_actual=w(ser.heating_demand),
+        indoor_t=indoor_t,
+        cooling_sp=cooling_sp,
+        heating_sp=heating_sp,
+        cooling_demand_actual=cool_act,
+        heating_demand_actual=heat_act,
         served=served,
     )
-    table = kpi_table(cfg, params, collected, start, baseline_condition)
+    table = kpi_table(cfg, params, collected, start, baseline_condition, final_state)
     return {k: v[0] for k, v in table.items()}
 
 
@@ -258,6 +284,9 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
     if family == "lstm" and not rollout_fast.lstm_packable(cfg, params):
         raise ValueError("LSTM configuration not kernel-packable; use "
                          "evaluate_districts (stepped path) instead")
+    if family == "neighborhood" and not rollout_fast.neighborhood_packable(cfg, params):
+        raise ValueError("configuration not neighborhood-packable; use "
+                         "evaluate_districts (stepped path) instead")
     dev = resolve_device(device)
     params = params.to(dev)
     S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
@@ -275,12 +304,22 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
         out = rollout_fast.run_ev_episode(
             cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
             data_offset=off, device=dev)
+    elif family == "neighborhood":
+        out = rollout_fast.run_neighborhood_episode(
+            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
+            data_offset=off, device=dev)
     else:
         out = rollout_fast.run_thermal_episode(
             cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
             data_offset=off, device=dev)
     rec = out[-1]
-    table = _assemble(cfg, params, family, rec, off, baseline_condition)
+    postpass = None
+    if family == "neighborhood":
+        # the single-district temperature and occupant post-pass: the tanks
+        # are inert, so the demand observations are the device outputs
+        postpass = temp_setpoint_series(cfg, params, rec[nb_ops.R_COUT], rec[nb_ops.R_HOUT],
+                                        S, data_offset=off)
+    table = _assemble(cfg, params, family, rec, off, baseline_condition, postpass)
     if return_series:
         return table, rec
     return table

@@ -29,6 +29,7 @@ from citylearn_tpu_torch.core.types import (
     EnvState,
     EVParams,
     HVACParams,
+    OccupantParams,
     SeriesData,
     StaticConfig,
     StorageTankParams,
@@ -365,6 +366,51 @@ def _pack_dynamics(spec: DistrictSpec, sl: slice, t) -> Tuple[Tuple[DynamicsPara
                                max_lookback=max(m[0] for m in metas))
 
 
+def _pack_occupant(spec: DistrictSpec, episode_steps: int, t) -> Tuple[Optional[OccupantParams], Dict]:
+    """Stack the occupant interaction models over buildings and draw the
+    per-step seeded uniforms (``occupant.py:69-71``: a fresh
+    ``RandomState(max(seed, 1) + t)`` per step, the same for every
+    building because every occupant shares the env seed); ``t`` puts a
+    numpy array on the device. Also returns the ``StaticConfig`` fields of
+    the occupant family (empty without occupants)."""
+    occs = [b.occupant for b in spec.buildings]
+    if all(o is None for o in occs):
+        return None, {}
+    if any(o is None for o in occs):
+        raise NotImplementedError("mixed occupant/plain dynamics districts not yet supported")
+    n_nodes = max(o.tree_children_left.shape[1] for o in occs)
+    depth = max(o.max_depth for o in occs)
+
+    def nodes(field, fill):
+        arrs = [getattr(o, field) for o in occs]
+        out = np.full((len(occs), 2, n_nodes), fill, arrs[0].dtype)
+        for i, arr in enumerate(arrs):
+            out[i, :, :arr.shape[1]] = arr
+        return t(out)
+
+    seed = max(spec.random_seed, 1)
+    rand = np.asarray([np.random.RandomState(seed + step).uniform()
+                       for step in range(episode_steps)], np.float32)
+    series = lambda field: t(np.stack([getattr(o, field)[:episode_steps] for o in occs],
+                                      axis=1).astype(np.float32))
+    occ = OccupantParams(
+        a_increase=series("a_increase"),
+        b_increase=series("b_increase"),
+        a_decrease=series("a_decrease"),
+        b_decrease=series("b_decrease"),
+        random_probability=t(rand),
+        tree_children_left=nodes("tree_children_left", -1),
+        tree_children_right=nodes("tree_children_right", -1),
+        tree_feature=nodes("tree_feature", -2),
+        tree_threshold=nodes("tree_threshold", 0.0),
+        tree_delta=nodes("tree_delta", 0.0),
+        hold_time_steps=t(np.asarray([min(o.set_point_hold_time_steps, 2 ** 30) for o in occs],
+                                     np.int32)),
+        lookback=t(np.asarray([b.dynamics.lookback if b.dynamics else 0
+                               for b in spec.buildings], np.int32)))
+    return occ, dict(has_occupant=True, occupant_tree_depth=depth)
+
+
 def rebake_outage(spec: DistrictSpec, cfg: StaticConfig, params: DistrictParams,
                   data_offset: int) -> DistrictParams:
     """Re-bake stochastic-outage signals for the episode window starting
@@ -507,6 +553,7 @@ def pack(spec: DistrictSpec, device=None
 
     chargers, evs, wms, ev_cfg = _pack_evs(spec, ep_steps, t)
     dynamics, dyn_cfg = _pack_dynamics(spec, sl, t)
+    occupant, occ_cfg = _pack_occupant(spec, ep_steps, t)
     # a dynamics district always steps the cooling and heating blocks
     has_dynamics = bool(dyn_cfg)
     cfg = StaticConfig(
@@ -528,6 +575,7 @@ def pack(spec: DistrictSpec, device=None
                     or b.dhw_storage.capacity > 0 for b in spec.buildings),
         **_reward_config(spec),
         **dyn_cfg,
+        **occ_cfg,
         **ev_cfg,
     )
     layout = build_obs_layout(spec)
@@ -538,7 +586,8 @@ def pack(spec: DistrictSpec, device=None
         **{name: block(StorageTankParams, name)
            for name in ("cooling_storage", "heating_storage", "dhw_storage")},
         obs_static=t(_obs_static(spec, layout)),
-        dynamics=dynamics, chargers=chargers, evs=evs, washing_machines=wms)
+        dynamics=dynamics, occupant=occupant, chargers=chargers, evs=evs,
+        washing_machines=wms)
     return cfg, params, layout
 
 
@@ -597,7 +646,12 @@ def initial_state(cfg: StaticConfig, params: DistrictParams,
         Bg = dyn.member_indices.shape[0]
         lstm_h.append(torch.zeros((L, Bg, H), dtype=torch.float32, device=dev))
         dyn_input.append(torch.zeros((Bg, F, lookback + 1), dtype=torch.float32, device=dev))
+    n_occ = cfg.n_buildings if cfg.has_occupant else 0
+    full = lambda value, dtype=torch.float32: torch.full((n_occ,), value, dtype=dtype, device=dev)
     return EnvState(
+        occ_csp_override=full(float("nan")), occ_hsp_override=full(float("nan")),
+        occ_hold_counter=full(-1, torch.int32),
+        occ_prev_temp=full(0.0), occ_prev_csp=full(0.0), occ_prev_hsp=full(0.0),
         lstm_h=tuple(lstm_h), lstm_c=tuple(torch.zeros_like(h) for h in lstm_h),
         dyn_input=tuple(dyn_input),
         ev_soc=ev_soc, ev_efficiency=ev_eff, ev_degraded_capacity=ev_deg,

@@ -5,7 +5,9 @@ districts on :func:`citylearn_tpu_torch.ops.battery.battery_episode`,
 thermal-storage districts on
 :func:`citylearn_tpu_torch.ops.thermal.thermal_episode`, EV districts on
 :func:`citylearn_tpu_torch.ops.ev.ev_episode`, LSTM-dynamics districts on
-:func:`citylearn_tpu_torch.ops.lstm.lstm_episode`.
+:func:`citylearn_tpu_torch.ops.lstm.lstm_episode`, and the neighborhood and
+occupant districts on
+:func:`citylearn_tpu_torch.ops.neighborhood.neighborhood_episode`.
 """
 
 from __future__ import annotations
@@ -31,10 +33,16 @@ from citylearn_tpu_torch.ops.lstm import (
     pack_weights,
     pad4,
 )
+from citylearn_tpu_torch.ops.neighborhood import N_NROWS, neighborhood_episode
 from citylearn_tpu_torch.ops.thermal import N_TROWS, thermal_episode
 
 THERMAL_KEYS = ("cooling_storage", "dhw_storage", "electrical_storage")
 LSTM_KEYS = ("cooling_device",) + THERMAL_KEYS
+NEIGHBORHOOD_KEYS = ("cooling_or_heating_device", "cooling_device", "heating_device",
+                     "electrical_storage")
+# the JAX package's lane tile: its neighborhood kernel holds a district's
+# buildings in one, and so does this package's eligibility rule
+B_PAD = 128
 _REWARD_OK = ("RewardFunction", "IndependentSACReward")
 # IndependentSACReward min(-net, 0) == -max(net, 0) == the default reward
 # at exponent 1 (reward_function.py:65-88,159-168)
@@ -485,6 +493,52 @@ def lstm_packable(cfg: StaticConfig, params: DistrictParams) -> bool:
             and float(params.heating_storage.capacity.max()) <= 0.0)
 
 
+def lstm_tables(cfg: StaticConfig, params: DistrictParams, S: int, off: int):
+    """Per building of a dynamics district, for the kernels that run its
+    LSTM: ``(units, buildings, schan, rows)`` — :func:`_lstm_units`; one
+    dict per building for :func:`citylearn_tpu_torch.ops.lstm.pack_weights`;
+    the static channels of the window ``[off, off + S)``, pre-normalized at
+    pack time, each building's ``pad4(F)`` columns side by side with its
+    dynamic channels (temperature, cooling and heating demand) zeroed, (S,
+    X) numpy; and (B,) numpy rows ``nmin_*`` / ``nspan_*`` (the
+    normalization minimum and span of the temperature, cooling- and
+    heating-demand channels ``tc``, ``cc``, ``hc``; 0 and 1 where a
+    building has no such channel), ``lin_b`` (the head's bias) and
+    ``cool_active`` (cooling_device availability)."""
+    B = cfg.n_buildings
+    units = _lstm_units(cfg, params)
+    host = [{k: getattr(d, k).cpu().numpy()
+             for k in ("lin_w", "lin_b", "norm_min", "norm_max", "cooling_device_active")}
+            for d in params.dynamics]
+    static = [d.static_channels[off:off + S].cpu().numpy() for d in params.dynamics]
+    layers = [[[w.cpu().numpy() for w in per_layer] for per_layer in (d.w_ih, d.w_hh, d.bias)]
+              for d in params.dynamics]
+    rows = {k: np.zeros(B, np.float32) for k in (
+        "nmin_tc", "nmin_cc", "nmin_hc", "lin_b", "cool_active")}
+    rows.update({k: np.ones(B, np.float32) for k in ("nspan_tc", "nspan_cc", "nspan_hc")})
+    schan = np.zeros((S, sum(pad4(u["F"]) for u in units)), np.float32)
+    buildings, x_off = [], 0
+    for b, u in enumerate(units):
+        g, row, F = u["g"], u["row"], u["F"]
+        nmin, nmax = host[g]["norm_min"][row], host[g]["norm_max"][row]
+        for name in ("tc", "cc", "hc"):
+            ch = u[name]
+            if ch >= 0:
+                rows[f"nmin_{name}"][b], rows[f"nspan_{name}"][b] = nmin[ch], nmax[ch] - nmin[ch]
+        rows["lin_b"][b] = host[g]["lin_b"][row]
+        rows["cool_active"][b] = float(host[g]["cooling_device_active"][row])
+        window = static[g][:, row, :]
+        schan[:window.shape[0], x_off:x_off + F] = window
+        for ch in (u["tc"], u["cc"], u["hc"]):
+            if ch >= 0:
+                schan[:, x_off + ch] = 0.0
+        w_ih, w_hh, bias = ([w[row] for w in per_layer] for per_layer in layers[g])
+        buildings.append(dict(w_ih=w_ih, w_hh=w_hh, bias=bias, lin_w=host[g]["lin_w"][row],
+                              tc=u["tc"], cc=u["cc"], hc=u["hc"]))
+        x_off += pad4(F)
+    return units, buildings, schan, rows
+
+
 def lstm_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: int,
                         action_tables: Dict[str, object], n_steps: Optional[int] = None,
                         data_offset: int = 0) -> dict:
@@ -501,35 +555,11 @@ def lstm_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: 
         np.ascontiguousarray(expand_action_plan(action_tables[k], hours, S, B))
         if action_tables.get(k) is not None else np.zeros((S, B), np.float32), device=dev)
     bparams, curves = battery_tables(params.battery)
-    units = _lstm_units(cfg, params)
-
-    # per building: its LSTM for the weight buffer, its rows of lparams and
-    # its static channels, pre-normalized at pack time, with the two
-    # channels the kernel fills in zeroed
+    units, buildings, schan, rows = lstm_tables(cfg, params, S, off)
     lrows = np.zeros((N_LROWS, B), np.float32)
-    schan = np.zeros((S, sum(pad4(u["F"]) for u in units)), np.float32)
-    host = [{k: getattr(d, k).cpu().numpy()
-             for k in ("lin_w", "lin_b", "norm_min", "norm_max", "cooling_device_active")}
-            for d in params.dynamics]
-    static = [d.static_channels[off:off + S].cpu().numpy() for d in params.dynamics]
-    layers = [[[w.cpu().numpy() for w in per_layer] for per_layer in (d.w_ih, d.w_hh, d.bias)]
-              for d in params.dynamics]
-    buildings, x_off = [], 0
-    for b, u in enumerate(units):
-        g, row, F, tc, cc = u["g"], u["row"], u["F"], u["tc"], u["cc"]
-        nmin, nmax = host[g]["norm_min"][row], host[g]["norm_max"][row]
-        lrows[L_NMIN_CC, b], lrows[L_NSPAN_CC, b] = nmin[cc], nmax[cc] - nmin[cc]
-        lrows[L_NMIN_TC, b], lrows[L_NSPAN_TC, b] = nmin[tc], nmax[tc] - nmin[tc]
-        lrows[L_LIN_B, b] = host[g]["lin_b"][row]
-        lrows[L_COOL_ACTIVE, b] = float(host[g]["cooling_device_active"][row])
-        rows = static[g][:, row, :]
-        schan[:rows.shape[0], x_off:x_off + F] = rows
-        schan[:, x_off + cc] = 0.0
-        schan[:, x_off + tc] = 0.0
-        w_ih, w_hh, bias = ([w[row] for w in per_layer] for per_layer in layers[g])
-        buildings.append(dict(w_ih=w_ih, w_hh=w_hh, bias=bias, lin_w=host[g]["lin_w"][row],
-                              tc=tc, cc=cc))
-        x_off += pad4(F)
+    lrows[L_NMIN_CC], lrows[L_NSPAN_CC] = rows["nmin_cc"], rows["nspan_cc"]
+    lrows[L_NMIN_TC], lrows[L_NSPAN_TC] = rows["nmin_tc"], rows["nspan_tc"]
+    lrows[L_LIN_B], lrows[L_COOL_ACTIVE] = rows["lin_b"], rows["cool_active"]
 
     band = (torch.full((S, B), float(cfg.reward_band), device=dev)
             if cfg.reward_band is not None else _pad_time(ser.comfort_band, S, off))
@@ -574,5 +604,132 @@ def run_lstm_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int
         raise ValueError("configuration not eligible for the LSTM fast path")
     params = params.to(resolve_device(device))
     return lstm_episode(**lstm_episode_inputs(
+        cfg, params, n_districts, action_tables, n_steps, data_offset),
+        record=record_series)
+
+
+def eligible_neighborhood(cfg: StaticConfig) -> bool:
+    """LSTM-dynamics districts that the LSTM kernel does not serve: the EULP
+    neighborhoods (47-100 heterogeneous buildings, signed
+    cooling_or_heating partial load, the default reward) and the quebec
+    occupant family (heating-side partial load, ComfortReward, occupant
+    interaction). The kernel runs the physics of every district; the
+    temperature and occupant sequence runs once, in the post-pass
+    (:mod:`citylearn_tpu_torch.core.neighborhood_eval`). Data-level
+    conditions (inert tanks, a shared lookback, every building covered,
+    B <= 128) are checked by :func:`neighborhood_packable`."""
+    return (cfg.has_dynamics and len(cfg.dyn_groups) >= 1
+            and not cfg.has_evs and not cfg.has_washing_machines
+            and not cfg.any_outage and not cfg.has_charging_constraints
+            and cfg.reward_per_building is None
+            and (cfg.reward_type == "ComfortReward"
+                 or (cfg.reward_type in _REWARD_OK and cfg.reward_exponent == 1.0)))
+
+
+def neighborhood_packable(cfg: StaticConfig, params: DistrictParams) -> bool:
+    """Data-level eligibility for the neighborhood kernel: every building
+    covered by a dynamics group with one shared lookback, at most 128
+    buildings, and zero cooling and heating tank capacity — which, through
+    the reference's conversion of the DHW action by the heating tank's
+    capacity (``building.py:1765``), makes every tank inert, the
+    precondition of the kernel's device-only dispatch. A district that the
+    LSTM kernel serves is not this kernel's."""
+    if not eligible_neighborhood(cfg):
+        return False
+    if eligible_lstm(cfg) and lstm_packable(cfg, params):
+        return False
+    if cfg.n_buildings > B_PAD:
+        return False
+    covered = np.concatenate([d.member_indices.cpu().numpy() for d in params.dynamics])
+    if not np.array_equal(np.sort(covered), np.arange(cfg.n_buildings)):
+        return False
+    if len({int(meta[0]) for meta in cfg.dyn_groups}) != 1:
+        return False
+    return (float(params.cooling_storage.capacity.max()) <= 0.0
+            and float(params.heating_storage.capacity.max()) <= 0.0)
+
+
+def neighborhood_rows(params: DistrictParams) -> torch.Tensor:
+    """The neighborhood kernel's parameter rows (N_NROWS, B), in
+    ``ops/neighborhood.py``'s row order; the partial-load availability
+    rows are the union over the dynamics groups."""
+    B = params.battery.capacity.shape[0]
+    active = torch.zeros((3, B), dtype=torch.float32, device=params.device)
+    for dyn in params.dynamics:
+        m = dyn.member_indices.long()
+        flags = torch.stack([dyn.cooling_device_active, dyn.heating_device_active,
+                             dyn.cooling_or_heating_active]).to(torch.float32)
+        active[:, m] = torch.maximum(active[:, m], flags)
+    cd, hd, dd = params.cooling_device, params.heating_device, params.dhw_device
+    dt = params.dhw_storage
+    rows = [
+        cd.nominal_power, cd.efficiency, cd.target_cooling_temperature,
+        cd.is_heat_pump.to(torch.float32),
+        hd.nominal_power, hd.efficiency, hd.target_heating_temperature,
+        hd.is_heat_pump.to(torch.float32),
+        dd.nominal_power, dd.efficiency, dd.target_heating_temperature,
+        dd.is_heat_pump.to(torch.float32),
+        dt.capacity, dt.loss_coefficient, *active,
+    ]
+    assert len(rows) == N_NROWS
+    return torch.stack(rows)
+
+
+def neighborhood_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: int,
+                                action_tables: Dict[str, object],
+                                n_steps: Optional[int] = None, data_offset: int = 0) -> dict:
+    """Keyword arguments of
+    :func:`citylearn_tpu_torch.ops.neighborhood.neighborhood_episode` for
+    ``n_districts`` fresh copies of the district under open-loop plans
+    (see :func:`run_neighborhood_episode`), on the device of ``params``.
+    Plans of other actions are inert on an eligible district and are not
+    read."""
+    S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
+    off = int(data_offset)
+    B = cfg.n_buildings
+    ser = params.series
+    hours = ser.hour[off:off + S, 0].cpu().numpy()
+    plan = lambda k: torch.tensor(
+        np.ascontiguousarray(expand_action_plan(action_tables[k], hours, S, B))
+        if action_tables.get(k) is not None else np.zeros((S, B), np.float32),
+        device=params.device)
+    bparams, curves = battery_tables(params.battery)
+    bat, dt = params.battery, params.dhw_storage
+    tile = lambda v: v.expand(n_districts, B).contiguous()
+    return dict(
+        actions=tuple(plan(k) for k in NEIGHBORHOOD_KEYS),
+        series=tuple(_pad_time(x, S, off) for x in (
+            ser.non_shiftable_load, ser.solar_generation, ser.electricity_pricing,
+            ser.carbon_intensity, ser.cooling_demand, ser.heating_demand, ser.dhw_demand,
+            ser.outdoor_dry_bulb_temperature, ser.hvac_mode.to(torch.float32))),
+        bparams=bparams, curves=curves, nparams=neighborhood_rows(params),
+        dsoc0=tile(dt.initial_soc), soc0=tile(bat.initial_soc), eff0=tile(bat.efficiency),
+        deg0=tile(bat.capacity),
+        hours_ratio=cfg.seconds_per_time_step / 3600.0, ratio=cfg.time_step_ratio,
+        lookback=int(cfg.dyn_groups[0][0]))
+
+
+def run_neighborhood_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
+                             action_tables: Dict[str, object], n_steps: Optional[int] = None,
+                             record_series: bool = False, data_offset: int = 0, device=None):
+    """Whole-episode rollout on the neighborhood kernel for ``n_districts``
+    identical district copies under open-loop plans ``{action_name: (24,)
+    hour table | (S,) | (S, B)}`` over cooling_or_heating_device /
+    cooling_device / heating_device / electrical_storage (missing keys act
+    0; dhw_storage plans are inert on this family and are not read), on
+    ``device`` (the CUDA card by default).
+
+    Returns (reward_sum, cost_sum, emission_sum, dhw_soc, bat_soc, bat_eff,
+    bat_degraded), each (D, B); with ``record_series=True`` an (N_NREC, S,
+    B) per-step stream of district 0 is appended (see
+    :mod:`citylearn_tpu_torch.ops.neighborhood` row constants). The reward
+    sum is the default exponent-1 reward; the ComfortReward of a quebec
+    district depends on the temperature of the post-pass and is not
+    summed here. ``data_offset`` shifts the episode window as in
+    :func:`run_battery_episode`."""
+    if not neighborhood_packable(cfg, params):
+        raise ValueError("configuration not eligible for the neighborhood fast path")
+    params = params.to(resolve_device(device))
+    return neighborhood_episode(**neighborhood_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)

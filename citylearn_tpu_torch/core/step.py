@@ -7,8 +7,8 @@ load — the 2022 (battery+PV) and 2021 (thermal-storage) families — plus
 the EV chargers, electric vehicles, washing machines and charging
 constraints of the ``plus_evs`` family, and the LSTM temperature
 dynamics, partial-load HVAC control and power outages of the 2023
-family. Occupants and the float64 parity mode raise
-``NotImplementedError``.
+family, and the occupant thermostat interaction of the neighborhood
+family. The float64 parity mode raises ``NotImplementedError``.
 
 Everything is elementwise over a ``(D, B)`` batch of districts and
 buildings; charger, EV and machine quantities are ``(D, C)``, ``(D, V)``
@@ -65,19 +65,19 @@ from citylearn_tpu_torch.core.types import (
 )
 
 #: configuration flags of blocks this step does not carry
-_UNSUPPORTED = ("has_occupant", "parity_f64")
+_UNSUPPORTED = ("parity_f64",)
 
 
 def check_supported(cfg: StaticConfig):
     """Raise ``NotImplementedError`` for a configuration outside the
-    battery+PV, thermal-storage, EV and LSTM-dynamics districts."""
+    battery+PV, thermal-storage, EV, LSTM-dynamics and occupant districts."""
     on = [name for name in _UNSUPPORTED if getattr(cfg, name)]
     if on:
         raise NotImplementedError(
-            f"the PyTorch port steps battery+PV, thermal-storage, EV and LSTM-dynamics "
-            f"districts (cooling, heating and DHW devices and tanks, battery, PV, chargers, "
-            f"EVs, washing machines, temperature dynamics, power outages); this "
-            f"configuration sets {', '.join(on)}")
+            f"the PyTorch port steps battery+PV, thermal-storage, EV, LSTM-dynamics and "
+            f"occupant districts (cooling, heating and DHW devices and tanks, battery, PV, "
+            f"chargers, EVs, washing machines, temperature dynamics, power outages, "
+            f"occupant thermostat interaction); this configuration sets {', '.join(on)}")
 
 
 class _ThermalResult(NamedTuple):
@@ -243,6 +243,92 @@ def dynamics_update(cfg: StaticConfig, params: DistrictParams, tau: torch.Tensor
         lstm_c[g] = torch.where(carry_warm, c_new, lstm_c[g])
         dyn_input[g] = buf
     return temp_t, tuple(lstm_h), tuple(lstm_c), tuple(dyn_input)
+
+
+OCC_FIELDS = ("occ_csp_override", "occ_hsp_override", "occ_hold_counter", "occ_prev_temp",
+              "occ_prev_csp", "occ_prev_hsp")
+
+
+def occupant_update(cfg: StaticConfig, params: DistrictParams, state, csp_data: torch.Tensor,
+                    hsp_data: torch.Tensor, hvac_mode: torch.Tensor, temp_t: torch.Tensor,
+                    t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Occupant thermostat interaction for one step (building.py:3160-3353,
+    occupant.py:62-99): the logistic interaction probability on the
+    just-predicted temperature and the decision trees' set-point delta,
+    with the future set points mutated, a hold counter and reversion. The
+    mutations are carried as NaN-coded overrides: the reference mutates
+    the series from index t on, so the effective set point is the override
+    where one is active, else the data. ``state`` needs the ``occ_*``
+    fields and ``data_offset``, each with a leading district axis; ``t``
+    is (D,), the set points, mode and temperature (D, B). Shared by
+    :func:`district_step` and the post-pass of the neighborhood family.
+
+    Returns ``(csp_eff, hsp_eff, occ_state_dict)``."""
+    occ = params.occupant
+    t = t.long()
+    is_t0 = (t == 0)[:, None]
+    csp_eff = torch.where(torch.isfinite(state.occ_csp_override), state.occ_csp_override,
+                          csp_data)
+    hsp_eff = torch.where(torch.isfinite(state.occ_hsp_override), state.occ_hsp_override,
+                          hsp_data)
+    # at t == 0 the reference reads index -1: numpy wraps to the episode's
+    # final row (building.py:3276-3285 with time_step 0)
+    end_idx = (state.data_offset + cfg.time_steps - 1).long()
+    series = params.series
+    prev_temp = torch.where(is_t0, series.indoor_dry_bulb_temperature[end_idx],
+                            state.occ_prev_temp)
+    prev_csp = torch.where(
+        is_t0, series.indoor_dry_bulb_temperature_cooling_set_point[end_idx], state.occ_prev_csp)
+    prev_hsp = torch.where(
+        is_t0, series.indoor_dry_bulb_temperature_heating_set_point[end_idx], state.occ_prev_hsp)
+
+    heating_mode = hvac_mode == 2
+    current_sp = torch.where(heating_mode, hsp_eff, csp_eff)
+    prev_sp = torch.where(heating_mode, prev_hsp, prev_csp)
+    sig = lambda a, b: 1.0 / (1.0 + torch.exp(-(a[t] + b[t] * temp_t)))
+    p_inc = sig(occ.a_increase, occ.b_increase)
+    p_dec = sig(occ.a_decrease, occ.b_decrease)
+    rp = occ.random_probability[t][:, None]
+    feats = torch.stack([current_sp, prev_sp, prev_temp - prev_sp], dim=-1)    # (D, B, 3)
+    rows = torch.arange(cfg.n_buildings, device=temp_t.device)
+
+    def tree_delta(k):
+        node = torch.zeros(temp_t.shape, dtype=torch.long, device=temp_t.device)
+        at = lambda arr: arr[:, k, :][rows, node]
+        for _ in range(cfg.occupant_tree_depth + 1):
+            f = at(occ.tree_feature)
+            x = feats.gather(-1, torch.clamp(f, 0, 2).long()[..., None])[..., 0]
+            nxt = torch.where(x <= at(occ.tree_threshold), at(occ.tree_children_left),
+                              at(occ.tree_children_right))
+            node = torch.where(f >= 0, nxt.long(), node)
+        return at(occ.tree_delta)
+
+    inc_fires = (p_inc >= rp) & (p_dec < rp)
+    dec_fires = (p_dec >= rp) & (p_inc < rp)
+    zero = torch.zeros_like(temp_t)
+    delta = torch.where(inc_fires, tree_delta(0), torch.where(dec_fires, -tree_delta(1), zero))
+    # the simulate_dynamics gate (building.py:2996)
+    delta = torch.where(t[:, None] >= occ.lookback, delta, zero)
+
+    trig = torch.abs(delta) > 0.0
+    cool_trig, heat_trig = trig & ~heating_mode, trig & heating_mode
+    counter = state.occ_hold_counter
+    counter = torch.where(trig, occ.hold_time_steps,
+                          torch.where(counter >= 0, counter - 1, counter))
+    revert = counter == 0
+    nan = torch.full_like(temp_t, float("nan"))
+    # this step's effective set points take the fresh mutation; reversion
+    # applies from t + 1 (building.py:3310-3317)
+    new_csp_ov = torch.where(revert, nan, torch.where(cool_trig, current_sp + delta,
+                                                      state.occ_csp_override))
+    new_hsp_ov = torch.where(revert, nan, torch.where(heat_trig, current_sp + delta,
+                                                      state.occ_hsp_override))
+    csp_eff = torch.where(cool_trig, current_sp + delta, csp_eff)
+    hsp_eff = torch.where(heat_trig, current_sp + delta, hsp_eff)
+    counter = torch.where(revert, torch.full_like(counter, -1), counter)
+    return csp_eff, hsp_eff, dict(
+        occ_csp_override=new_csp_ov, occ_hsp_override=new_hsp_ov, occ_hold_counter=counter,
+        occ_prev_temp=temp_t, occ_prev_csp=csp_eff, occ_prev_hsp=hsp_eff)
 
 
 class _EVResult(NamedTuple):
@@ -585,6 +671,12 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         state.lstm_h, state.lstm_c, state.dyn_input)
     cooling_sp = at(series.indoor_dry_bulb_temperature_cooling_set_point)
     heating_sp = at(series.indoor_dry_bulb_temperature_heating_set_point)
+    # ---- occupant thermostat interaction on the predicted temperature
+    # (building.py:3160-3353) ----
+    occ_state = {f: getattr(state, f) for f in OCC_FIELDS}
+    if cfg.has_occupant:
+        cooling_sp, heating_sp, occ_state = occupant_update(
+            cfg, params, state, cooling_sp, heating_sp, hvac_mode, temp_t, t)
 
     new_state = EnvState(
         t=t + 1,
@@ -600,6 +692,7 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         ev_degraded_capacity=ev.ev_degraded_capacity,
         wm_initiated=wm_initiated,
         lstm_h=lstm_h, lstm_c=lstm_c, dyn_input=dyn_input,
+        **occ_state,
     )
     reward = compute_reward(cfg, ev=ev.reward_inputs, x=RewardInputs(
         net=net, solar=solar_abs, battery_soc=bat.soc,

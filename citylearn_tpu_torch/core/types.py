@@ -140,6 +140,24 @@ class DynamicsParams:
 
 
 @dataclasses.dataclass
+class OccupantParams:
+    """Stochastic occupant thermostat interaction, stacked over buildings
+    (reference ``occupant.py:18-99``, ``building.py:3160-3353``)."""
+    a_increase: torch.Tensor              # (T, B)
+    b_increase: torch.Tensor
+    a_decrease: torch.Tensor
+    b_decrease: torch.Tensor
+    random_probability: torch.Tensor      # (T,) seeded uniform draws
+    tree_children_left: torch.Tensor      # (B, 2, N) int32
+    tree_children_right: torch.Tensor
+    tree_feature: torch.Tensor
+    tree_threshold: torch.Tensor          # (B, 2, N)
+    tree_delta: torch.Tensor
+    hold_time_steps: torch.Tensor         # (B,) int32
+    lookback: torch.Tensor                # (B,) int32 dynamics warm-up gate
+
+
+@dataclasses.dataclass
 class ChargerParams:
     """EV chargers stacked over a district-wide charger axis ``C``
     (reference ``electric_vehicle_charger.py``); schedule tensors are
@@ -209,7 +227,9 @@ class DistrictParams:
     # one entry per group of buildings with identical LSTM shapes; empty
     # on a district without dynamics
     dynamics: Tuple[DynamicsParams, ...] = ()
-    # absent (None) on a district without chargers / washing machines
+    # absent (None) on a district without occupants, chargers or washing
+    # machines
+    occupant: Optional[OccupantParams] = None
     chargers: Optional[ChargerParams] = None
     evs: Optional[EVParams] = None
     washing_machines: Optional[WashingMachineParams] = None
@@ -238,9 +258,8 @@ class StaticConfig:
     # paths need data_offset == 0 or a signal rebaked by
     # core/params.rebake_outage.
     has_stochastic_outage: bool = False
-    # the float64 parity mode and occupants are blocks the JAX package
-    # carries and this port does not yet: a configuration that sets either
-    # raises in core/step.py
+    # the float64 parity mode is a block the JAX package carries and this
+    # port does not yet: a configuration that sets it raises in core/step.py
     parity_f64: bool = False             # float64 reference-parity mode
     reward_exponent: float = 1.0
     reward_type: str = "RewardFunction"
@@ -304,6 +323,17 @@ class EnvState:
     lstm_h: Tuple[torch.Tensor, ...] = ()
     lstm_c: Tuple[torch.Tensor, ...] = ()
     dyn_input: Tuple[torch.Tensor, ...] = ()
+    # occupant interaction carry, (B,) each per district and zero-sized
+    # when the district has no occupants: NaN-coded set-point overrides,
+    # the -1-coded hold counter, the previous step's predicted temperature
+    # and effective set points (the decision trees' features,
+    # building.py:3280-3284)
+    occ_csp_override: Optional[torch.Tensor] = None
+    occ_hsp_override: Optional[torch.Tensor] = None
+    occ_hold_counter: Optional[torch.Tensor] = None
+    occ_prev_temp: Optional[torch.Tensor] = None
+    occ_prev_csp: Optional[torch.Tensor] = None
+    occ_prev_hsp: Optional[torch.Tensor] = None
 
     def to(self, device) -> "EnvState":
         return map_tensors(lambda x: x.to(device), self)

@@ -63,6 +63,7 @@
 // hardware's exp2 and reciprocal: the temperature, the reward and their
 // sums agree with the plain version to a tolerance, not to the bit.
 
+#include "lstm_common.cuh"
 #include "thermal_common.cuh"
 
 namespace {
@@ -74,84 +75,18 @@ using thermal::BlockResult;
 using thermal::EndUse;
 using thermal::flexibility;
 
-constexpr int MAX_H = 64;   // ops/lstm.py MAX_HIDDEN
-constexpr int MAX_F = 32;   // ops/lstm.py MAX_CHANNELS
+using lstm::head;
+using lstm::lstm_cell;
+using lstm::MAX_F;
+using lstm::MAX_H;
+using namespace lstm::meta;
+
 constexpr int THREADS = 64;
 
-// rows of lparams and of the record, columns of meta, as ops/lstm.py names them
+// rows of lparams and of the record, as ops/lstm.py names them
 enum LRow { L_NMIN_CC, L_NSPAN_CC, L_NMIN_TC, L_NSPAN_TC, L_LIN_B, L_COOL_ACTIVE };
 enum Rec { R_NET, R_CBAL, R_DBAL, R_BBAL, R_CSOC, R_DSOC, R_BSOC, R_COUT, R_DOUT,
            R_TEMP, R_REWARD, R_CDEM, R_NSLMET };
-enum Meta { M_LAYERS, M_HIDDEN, M_CHANNELS, M_TEMP_CH, M_COOL_CH, M_X_OFF, M_W_OFF, N_META };
-
-__device__ __forceinline__ float sigmoidf(float x) {
-    return __fdividef(1.f, 1.f + __expf(-x));
-}
-// 1 - 2 / (1 + e^2x): exact limits at both ends, absolute error of a few
-// 1e-7 near 0, where only the absolute error reaches the gate products
-__device__ __forceinline__ float tanh_fast(float x) {
-    return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
-}
-
-// One LSTM cell: gates = W_ih x + W_hh h + b in torch's order i, f, g, o;
-// c' = f c + i g; h' = o tanh(c'). `cols` holds the weights input by
-// input: for each of the in_p entries of x and then each of the h_p entries
-// of h, the 4H weights of that entry (its column of [W_ih | W_hh]), so that
-// one input value feeds 4H independent multiply-adds, whose weights every
-// lane of the warp reads from one address, 16 bytes at a time. Each gate
-// row accumulates its bias, then x in order, then h in order. Updates c in
-// place and writes h' to hnew (h is read until the last product).
-template <int HC, int INC>
-__device__ __forceinline__ void lstm_cell(const float* __restrict__ cols,
-                                          const float* __restrict__ bias, int H_, int in_p_,
-                                          int h_p_, const float* xin, const float* h, float* c,
-                                          float* hnew) {
-    const int H = HC > 0 ? HC : H_;
-    const int in_p = INC > 0 ? INC : in_p_;
-    const int h_p = HC > 0 ? HC : h_p_;
-    constexpr int ACC = 4 * (HC > 0 ? HC : MAX_H);
-    float acc[ACC];
-    const float4* b4 = reinterpret_cast<const float4*>(bias);
-    const float4* w4 = reinterpret_cast<const float4*>(cols);
-#pragma unroll
-    for (int r = 0; r < H; ++r) {                 // 4H rows = H groups of 4
-        const float4 q = __ldg(b4 + r);
-        acc[4 * r + 0] = q.x;
-        acc[4 * r + 1] = q.y;
-        acc[4 * r + 2] = q.z;
-        acc[4 * r + 3] = q.w;
-    }
-#pragma unroll
-    for (int k = 0; k < in_p + h_p; ++k) {
-        const float v = k < in_p ? xin[k] : h[k - in_p];
-#pragma unroll
-        for (int r = 0; r < H; ++r) {
-            const float4 q = __ldg(w4 + k * H + r);
-            acc[4 * r + 0] = __fmaf_rn(q.x, v, acc[4 * r + 0]);
-            acc[4 * r + 1] = __fmaf_rn(q.y, v, acc[4 * r + 1]);
-            acc[4 * r + 2] = __fmaf_rn(q.z, v, acc[4 * r + 2]);
-            acc[4 * r + 3] = __fmaf_rn(q.w, v, acc[4 * r + 3]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-        const float cn = sigmoidf(acc[H + j]) * c[j]
-            + sigmoidf(acc[j]) * tanh_fast(acc[2 * H + j]);
-        c[j] = cn;
-        hnew[j] = sigmoidf(acc[3 * H + j]) * tanh_fast(cn);
-    }
-}
-
-// bias + sum_j w[j] * h[j] over the padded hidden vector: the linear head
-template <int HC>
-__device__ __forceinline__ float head(const float* __restrict__ w, const float* h, int h_p,
-                                      float bias) {
-    const int n = HC > 0 ? HC : h_p;
-    float acc = bias;
-#pragma unroll
-    for (int j = 0; j < n; ++j) acc = __fmaf_rn(__ldg(w + j), h[j], acc);
-    return acc;
-}
 
 __device__ __forceinline__ float powe(float d, float e) {
     if (e == 1.f) return d;

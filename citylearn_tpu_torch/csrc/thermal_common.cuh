@@ -1,6 +1,6 @@
 // The thermal end-use blocks shared by the thermal kernels (K3
-// thermal_episode.cu; the LSTM and neighborhood kernels build on the same
-// blocks): one (district, building) thread's per-step device COP, storage
+// thermal_episode.cu, K5 lstm_episode.cu; the neighborhood kernel K6 takes
+// the COP alone): one (district, building) thread's per-step device COP, storage
 // tank event and device-plus-tank block with both priority orders
 // (reference building.py:1641-1823, energy_model.py:157-451, 603-871).
 //
@@ -36,6 +36,19 @@ enum Row {
 // far, +inf otherwise.
 __device__ __forceinline__ float flexibility(bool outage, float solar, float accum) {
     return outage ? max_nan(0.f, solar - accum) : __int_as_float(0x7f800000);
+}
+
+// Carnot COP clamped to (0, 20] for heat pumps (negative, above 20 and
+// NaN from outdoor == target all map to 20), the constant efficiency for
+// heaters (energy_model.py:216-250).
+__device__ __forceinline__ float cop(float eff, float target, bool is_hp, bool heating,
+                                     float outdoor) {
+    const float denom = heating ? target - outdoor : outdoor - target;
+    float c = eff * (target + 273.15f) / denom;
+    c = c < 0.f ? 20.f : c;
+    c = c > 20.f ? 20.f : c;
+    c = c != c ? 20.f : c;
+    return is_hp ? c : eff;
 }
 
 // A storage tank's parameters and its charge event
@@ -94,16 +107,8 @@ struct EndUse {
         conv = tparams[conv_row * B + b];
     }
 
-    // Carnot COP clamped to (0, 20] for heat pumps (negative, above 20 and
-    // NaN from outdoor == target all map to 20), the constant efficiency
-    // for heaters (energy_model.py:216-250).
     __device__ __forceinline__ float cop(float outdoor) const {
-        const float denom = heating ? target - outdoor : outdoor - target;
-        float c = eff * (target + 273.15f) / denom;
-        c = c < 0.f ? 20.f : c;
-        c = c > 20.f ? 20.f : c;
-        c = c != c ? 20.f : c;
-        return is_hp ? c : eff;
+        return thermal::cop(eff, target, is_hp, heating, outdoor);
     }
 
     // Serve `demand` under the storage `action`: a charging or idle tank

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("battery_episode", "battery_collect", "thermal_episode", "ev_episode",
-           "lstm_episode")
+           "lstm_episode", "neighborhood_episode", "neighborhood_postpass")
 # -fmad=false: no multiply-add contraction, so each kernel rounds every
 # operation as its plain PyTorch version does (IEEE division and square
 # root are nvcc's defaults without --use_fast_math)

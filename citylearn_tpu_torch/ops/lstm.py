@@ -63,12 +63,13 @@ from citylearn_tpu_torch.ops.thermal import (
 (R_NET, R_CBAL, R_DBAL, R_BBAL, R_CSOC, R_DSOC, R_BSOC, R_COUT, R_DOUT,
  R_TEMP, R_REWARD, R_CDEM, R_NSLMET, N_LREC) = range(14)
 
-# per-building columns of LstmWeights.meta
-(M_LAYERS, M_HIDDEN, M_CHANNELS, M_TEMP_CH, M_COOL_CH, M_X_OFF, M_W_OFF,
- N_META) = range(8)
+# per-building columns of LstmWeights.meta (csrc/lstm_common.cuh); the
+# heating-demand channel is read by the neighborhood post-pass only
+(M_LAYERS, M_HIDDEN, M_CHANNELS, M_TEMP_CH, M_COOL_CH, M_X_OFF, M_W_OFF, M_HEAT_CH,
+ N_META) = range(9)
 
-MAX_HIDDEN = 64      # csrc/lstm_episode.cu MAX_H
-MAX_CHANNELS = 32    # csrc/lstm_episode.cu MAX_F
+MAX_HIDDEN = 64      # csrc/lstm_common.cuh MAX_H
+MAX_CHANNELS = 32    # csrc/lstm_common.cuh MAX_F
 MAX_LOOKBACK = 95    # the ring of one block of 64 threads fits 48 KB of shared memory
 
 
@@ -90,8 +91,8 @@ class LstmWeights(NamedTuple):
     rows follow torch's order i, f, g, o. ``meta`` (B, N_META) int32 holds per building the
     layer count, hidden size, channel count, the temperature and
     cooling-demand channel, the offset of its channels in the static
-    stream and the offset of its weights; ``units`` the same numbers on
-    the host."""
+    stream, the offset of its weights and the heating-demand channel (-1
+    where a channel is absent); ``units`` the same numbers on the host."""
     flat: torch.Tensor
     meta: torch.Tensor
     units: Tuple[Tuple[int, ...], ...]
@@ -100,8 +101,9 @@ class LstmWeights(NamedTuple):
 def pack_weights(buildings: Sequence[Dict], device) -> LstmWeights:
     """:class:`LstmWeights` from one dict per building with ``w_ih``,
     ``w_hh``, ``bias`` (a list per layer of (4H, F or H), (4H, H), (4H,)
-    arrays), ``lin_w`` (H,), ``tc`` and ``cc`` (channel indices). Each
-    building's static channels take ``pad4(F)`` columns of the stream."""
+    arrays), ``lin_w`` (H,), ``tc``, ``cc`` and optionally ``hc`` (channel
+    indices, -1 for an absent one). Each building's static channels take
+    ``pad4(F)`` columns of the stream."""
     chunks: List[np.ndarray] = []
     units = []
     x_off = w_off = 0
@@ -110,7 +112,7 @@ def pack_weights(buildings: Sequence[Dict], device) -> LstmWeights:
         w_hh = [np.asarray(w, np.float32) for w in u["w_hh"]]
         L, H, F = len(w_ih), w_hh[0].shape[1], w_ih[0].shape[1]
         HP, FP = pad4(H), pad4(F)
-        units.append((L, H, F, int(u["tc"]), int(u["cc"]), x_off, w_off))
+        units.append((L, H, F, int(u["tc"]), int(u["cc"]), x_off, w_off, int(u.get("hc", -1))))
         mine = []
         for l in range(L):
             in_p = FP if l == 0 else HP
@@ -257,7 +259,7 @@ def lstm_episode_reference(actions: Sequence[torch.Tensor], series: Sequence[tor
     # full, and the window of normalized inputs (D, Bg, F, lookback + 1)
     groups = []
     for bs, dyn in _groups(weights):
-        L, H, F, tc, cc, _, _ = weights.units[bs[0]]
+        L, H, F, tc, cc = weights.units[bs[0]][:5]
         cols = torch.tensor([[weights.units[b][M_X_OFF] + f for f in range(F)] for b in bs],
                             device=soc0.device)
         dyn.lin_b = lparams[L_LIN_B][bs]
@@ -409,7 +411,7 @@ def lstm_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor]
     X = static_width(weights)
     if len(weights.units) != B:
         raise ValueError(f"lstm_episode got weights of {len(weights.units)} buildings for {B}")
-    for L, H, F, tc, cc, _, _ in weights.units:
+    for L, H, F, tc, cc, *_ in weights.units:
         if L not in (1, 2) or not 1 <= H <= MAX_HIDDEN or not 2 <= F <= MAX_CHANNELS \
                 or not (0 <= tc < F and 0 <= cc < F and tc != cc):
             raise ValueError(

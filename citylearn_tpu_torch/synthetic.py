@@ -110,6 +110,19 @@ def _write_shared_files(root: str, n_rows: int, rng: np.random.RandomState):
                 direct=direct, diffuse=diffuse)
 
 
+def _quarter_hours(energy: dict, n_rows: int) -> dict:
+    """The building columns relabelled as 15-minute rows: ``hour`` advances
+    every fourth row and a ``minutes`` column follows it, so that the
+    compiler derives a time-step ratio of 4 against hourly steps."""
+    t = np.arange(n_rows)
+    out = {}
+    for k, v in energy.items():
+        out[k] = (t // 4) % 24 + 1 if k == "hour" else v
+        if k == "hour":
+            out["minutes"] = (t % 4) * 15
+    return out
+
+
 def _load_and_solar(rng: np.random.RandomState, cal: dict, n_rows: int):
     """One building's non-shiftable load and its PV output per kW of
     nominal power, in W (the compiler scales by nominal_power / 1000)."""
@@ -185,9 +198,12 @@ def _write_schema(root: str, n_rows: int, seed: int, observations, active_action
 
 
 def write_battery_pv_dataset(root: str, n_buildings: int = 5, n_rows: int = 8760,
-                             seed: int = 0) -> str:
+                             seed: int = 0, minutes: bool = False) -> str:
     """Write the dataset under ``root`` and return the path of its
-    ``schema.json``. The same arguments always write the same files."""
+    ``schema.json``. The same arguments always write the same files.
+    ``minutes=True`` labels the rows as 15-minute steps (an ``hour`` that
+    advances every fourth row and a ``minutes`` column), which hourly
+    steps read at a time-step ratio of 4."""
     rng = np.random.RandomState(seed)
     cal = _write_shared_files(root, n_rows, rng)
 
@@ -198,13 +214,14 @@ def write_battery_pv_dataset(root: str, n_buildings: int = 5, n_rows: int = 8760
         energy = {"month": cal["month"], "hour": cal["hour"], "day_type": cal["day_type"],
                   "daylight_savings_status": np.zeros(n_rows, np.int64),
                   "non_shiftable_load": load, "solar_generation": solar}
-        _write_csv(os.path.join(root, f"{name}.csv"), energy)
+        _write_csv(os.path.join(root, f"{name}.csv"),
+                   _quarter_hours(energy, n_rows) if minutes else energy)
         buildings[name] = _building_entry(name, _battery_and_pv(rng))
     return _write_schema(root, n_rows, seed, OBSERVATIONS, {"electrical_storage"}, buildings)
 
 
 def write_thermal_dataset(root: str, n_buildings: int = 9, n_rows: int = 8760,
-                          seed: int = 0, heating: bool = False) -> str:
+                          seed: int = 0, heating: bool = False, minutes: bool = False) -> str:
     """Write a thermal-storage district under ``root`` and return the path
     of its ``schema.json``. The same arguments always write the same files.
 
@@ -223,7 +240,9 @@ def write_thermal_dataset(root: str, n_buildings: int = 9, n_rows: int = 8760,
     tanks only lose their initial charge. ``heating=True`` adds winter
     heating demand (never in a row with cooling demand), a heating device
     (an electric heater in building 2, else a heat pump) and a heating
-    tank, which also makes the DHW tanks controllable.
+    tank, which also makes the DHW tanks controllable. ``minutes=True``
+    labels the rows as 15-minute steps, as :func:`write_battery_pv_dataset`
+    does.
     """
     rng = np.random.RandomState(seed)
     cal = _write_shared_files(root, n_rows, rng)
@@ -247,7 +266,8 @@ def write_thermal_dataset(root: str, n_buildings: int = 9, n_rows: int = 8760,
                   "indoor_dry_bulb_temperature": 22 + 2 * season + rng.normal(0, 0.3, n_rows),
                   "non_shiftable_load": load, "dhw_demand": dhw, "cooling_demand": cooling,
                   "heating_demand": heat, "solar_generation": solar}
-        _write_csv(os.path.join(root, f"{name}.csv"), energy)
+        _write_csv(os.path.join(root, f"{name}.csv"),
+                   _quarter_hours(energy, n_rows) if minutes else energy)
 
         tank = lambda capacity, caps=False: {
             "type": "citylearn.energy_model.StorageTank",
@@ -650,3 +670,182 @@ def write_lstm_dataset(root: str, n_buildings: int = 3, n_rows: int = 8760, seed
         reward_function={"type": "citylearn.reward_function.ComfortReward",
                          "attributes": {"band": 2.0, "lower_exponent": 2.0,
                                         "higher_exponent": 3.0}})
+
+
+#: the hidden sizes of the neighborhood writer's LSTMs, by building
+NEIGHBORHOOD_HIDDEN = (8, 16, 24, 32)
+NEIGHBORHOOD_OBSERVATIONS = [
+    "indoor_dry_bulb_temperature", "indoor_dry_bulb_temperature_cooling_set_point",
+    "indoor_dry_bulb_temperature_heating_set_point", "cooling_demand", "heating_demand",
+    "dhw_demand", "occupant_count", "hvac_mode", "comfort_band", "dhw_storage_soc",
+]
+
+
+def _write_occupant_parameters(path: str, rng: np.random.RandomState, n_rows: int, h):
+    """One building's logistic interaction parameters: the probability
+    ``1 / (1 + exp(-(a + b T)))`` of asking for a warmer or a cooler set
+    point at indoor temperature T, strongest in the morning and the
+    evening."""
+    active = 0.5 + np.exp(-((h - 7) / 2.0) ** 2) + np.exp(-((h - 19) / 2.0) ** 2)
+    b_inc = -rng.uniform(0.3, 0.5)
+    b_dec = rng.uniform(0.3, 0.5)
+    _write_csv(path, {
+        "a_increase": -b_inc * 19.0 - 2.5 + active + rng.normal(0, 0.2, n_rows),
+        "b_increase": np.full(n_rows, b_inc),
+        "a_decrease": -b_dec * 26.0 - 2.5 + active + rng.normal(0, 0.2, n_rows),
+        "b_decrease": np.full(n_rows, b_dec)})
+
+
+def write_neighborhood_dataset(root: str, n_buildings: int = 100, n_rows: int = 8760,
+                               seed: int = 0, quebec: bool = False) -> str:
+    """Write a neighborhood district under ``root`` and return the path of
+    its ``schema.json``. The same arguments always write the same files.
+
+    The default is the shape of the EULP county neighborhoods
+    (``ca_alameda_county_neighborhood`` as the JAX package's bench runs it):
+    ``LSTMDynamicsBuilding``s whose LSTMs differ from building to building
+    (hidden sizes :data:`NEIGHBORHOOD_HIDDEN` in turn, one or two layers, a
+    shared lookback of 12; buildings read the cooling demand, the heating
+    demand or both among their channels), a cooling and a heating heat pump
+    (an electric heater in every fifth building) under the signed
+    ``cooling_or_heating_device`` action, a DHW heater and tank, no cooling
+    or heating tank, a battery under ``electrical_storage`` and PV, and the
+    default ``RewardFunction``. ``hvac_mode`` is 1 in summer, 2 in winter
+    and 3 between, with hours of 0.
+
+    ``quebec=True`` writes the shape of the quebec neighborhoods instead
+    (whose sets hold 20 buildings):
+    ``n_buildings`` ``LogisticRegressionOccupantInteractionBuilding``s
+    reading the heating demand, a heat pump under the ``heating_device``
+    action, a DHW heater and tank, no battery and no PV, the
+    ``ComfortReward``, and an occupant per building whose parameter file is
+    written and whose two decision-tree files are not: the compiler then
+    stands in an inert tree."""
+    rng = np.random.RandomState(seed)
+    cal = _write_shared_files(root, n_rows, rng)
+    h, season, temp = cal["h"], cal["season"], cal["temp"]
+    day = np.arange(n_rows) // 24
+    r2 = lambda lo, hi: float(np.round(rng.uniform(lo, hi), 2))
+
+    # summer cools, winter heats, the seasons between do both
+    mode = np.where(season > 0.3, 1, np.where(season < -0.3, 2, 3)).astype(np.int64)
+    mode[(day % 11 == 5) & (h >= 9) & (h < 15)] = 0
+    if quebec:
+        mode = np.where(season > 0.6, 3, 2).astype(np.int64)
+        mode[(day % 11 == 5) & (h >= 9) & (h < 15)] = 0
+    cooling_sp = np.where((h >= 7) & (h < 22), 24.0, 26.0) \
+        + np.array([0.0, -2.0, 1.0, -1.0, 0.0])[day % 5]
+    heating_sp = np.where((h >= 7) & (h < 22), 21.0, 18.0) \
+        + np.array([0.0, 2.0, -1.0, 1.0, 0.0])[(day // 2) % 5]
+    irradiance = {"direct_solar_irradiance": cal["direct"],
+                  "diffuse_solar_irradiance": cal["diffuse"]}
+
+    buildings = {}
+    for b in range(n_buildings):
+        name = f"Building_{b + 1}"
+        hidden = NEIGHBORHOOD_HIDDEN[(b // 3) % len(NEIGHBORHOOD_HIDDEN)]
+        layers = 1 + b % 2
+        demand_channels = (("heating_demand",) if quebec else
+                           (("cooling_demand",), ("heating_demand",),
+                            ("cooling_demand", "heating_demand"))[b % 3])
+        inputs = [c for c in LSTM_INPUTS if c != "cooling_demand"]
+        inputs[4:4] = list(demand_channels)
+        load, solar = _load_and_solar(rng, cal, n_rows)
+        afternoon = 0.4 + 0.6 * np.exp(-((h - 15) / 4.0) ** 2)
+        cooling = np.clip((temp - 12) * rng.uniform(0.15, 0.3) * afternoon
+                          + rng.normal(0, 0.1, n_rows), 0, None)
+        heat = np.clip((16 - temp) * rng.uniform(0.2, 0.4) + rng.normal(0, 0.1, n_rows), 0, None)
+        if quebec:
+            cooling = np.zeros(n_rows)
+        heat = heat * (cooling == 0)             # never both in one step
+        dhw = np.clip(rng.uniform(0.3, 0.9) * (np.exp(-((h - 7) / 1.5) ** 2)
+                                              + 0.7 * np.exp(-((h - 20) / 2.0) ** 2))
+                      + rng.normal(0, 0.03, n_rows), 0, None)
+        occupants = np.where((h >= 8) & (h < 17) & (cal["day_type"] <= 5), 1,
+                             rng.randint(1, 4, n_rows)).astype(np.int64)
+        indoor = 21.5 + 2.5 * season + rng.normal(0, 0.4, n_rows)
+        energy = {"month": cal["month"], "hour": cal["hour"], "day_type": cal["day_type"],
+                  "daylight_savings_status": np.zeros(n_rows, np.int64),
+                  "indoor_dry_bulb_temperature": indoor,
+                  "non_shiftable_load": load, "dhw_demand": dhw, "cooling_demand": cooling,
+                  "heating_demand": heat, "solar_generation": solar if not quebec
+                  else np.zeros(n_rows),
+                  "occupant_count": occupants,
+                  "indoor_dry_bulb_temperature_cooling_set_point": cooling_sp,
+                  "indoor_dry_bulb_temperature_heating_set_point": heating_sp,
+                  "hvac_mode": mode}
+        _write_csv(os.path.join(root, f"{name}.csv"), energy)
+        _write_lstm_weights(os.path.join(root, f"{name}.pth"), np.random.RandomState(
+            [seed, b, hidden, layers]), len(inputs), hidden, layers)
+
+        cooling_power, heating_power = r2(1.5, 2.5), r2(2.0, 4.0)
+        periodic = {k: np.arange(1, n + 1) / n
+                    for k, n in (("month", 12), ("hour", 24), ("day_type", 7))}
+        # the demand channels' ranges: the most each heat pump can deliver,
+        # at the largest COP
+        ranges = {"outdoor_dry_bulb_temperature": (temp.min(), temp.max()),
+                  "occupant_count": (0.0, 3.0),
+                  "cooling_demand": (0.0, 20.0 * cooling_power),
+                  "heating_demand": (0.0, 20.0 * heating_power),
+                  "indoor_dry_bulb_temperature": LSTM_TEMPERATURE_RANGE,
+                  **{k: (0.0, v.max()) for k, v in irradiance.items()},
+                  **{f"{k}_{fn.__name__}": (fn(2 * np.pi * v).min(), fn(2 * np.pi * v).max())
+                     for k, v in periodic.items() for fn in (np.sin, np.cos)}}
+        lo, hi = zip(*(ranges[k] for k in inputs))
+        g6 = lambda xs: [float("%.6g" % x) for x in xs]
+
+        heat_pump = lambda power: {
+            "type": "citylearn.energy_model.HeatPump", "autosize": False,
+            "attributes": {"nominal_power": power, "efficiency": r2(0.2, 0.3),
+                           "target_cooling_temperature": r2(7.0, 10.0),
+                           "target_heating_temperature": r2(45.0, 50.0)}}
+        heater = lambda power: {
+            "type": "citylearn.energy_model.ElectricHeater", "autosize": False,
+            "attributes": {"nominal_power": power, "efficiency": r2(0.9, 0.99)}}
+        devices = {} if quebec else _battery_and_pv(rng)
+        if not quebec:
+            devices["cooling_device"] = heat_pump(cooling_power)
+        devices["heating_device"] = (heater if b % 5 == 4 and not quebec
+                                     else heat_pump)(heating_power)
+        devices["dhw_device"] = heater(r2(2.0, 4.0))
+        devices["dhw_storage"] = {
+            "type": "citylearn.energy_model.StorageTank", "autosize": False,
+            "attributes": {"capacity": float(np.round(rng.uniform(1.5, 3.0) * dhw.max(), 2)),
+                           "efficiency": r2(0.9, 0.98),
+                           "loss_coefficient": float(np.round(rng.uniform(0.002, 0.008), 4)),
+                           "initial_soc": r2(0.3, 0.9)}}
+        entry = _building_entry(name, devices)
+        entry["type"] = ("citylearn.building.LogisticRegressionOccupantInteractionBuilding"
+                         if quebec else "citylearn.building.LSTMDynamicsBuilding")
+        entry["dynamics"] = {
+            "type": "citylearn.dynamics.LSTMDynamics",
+            "attributes": {"input_size": len(inputs), "hidden_size": hidden,
+                           "num_layers": layers, "dropout": 0.0, "lookback": 12,
+                           "filename": f"{name}.pth",
+                           "input_normalization_minimum": g6(lo),
+                           "input_normalization_maximum": g6(hi),
+                           "input_observation_names": inputs}}
+        if quebec:
+            _write_occupant_parameters(os.path.join(root, f"{name}_occupant_parameters.csv"),
+                                       rng, n_rows, h)
+            entry["set_point_hold_time_steps"] = 4
+            entry["occupant"] = {
+                "type": "citylearn.occupant.LogisticRegressionOccupant",
+                "parameters_filename": f"{name}_occupant_parameters.csv",
+                "attributes": {"setpoint_increase_model_filename":
+                               f"{name}_setpoint_increase.pkl",
+                               "setpoint_decrease_model_filename":
+                               f"{name}_setpoint_decrease.pkl",
+                               "delta_output_map": {"0": 0.5, "1": 1.5}}}
+        buildings[name] = entry
+
+    if quebec:
+        return _write_schema(
+            root, n_rows, seed, OBSERVATIONS + NEIGHBORHOOD_OBSERVATIONS, {"heating_device"},
+            buildings, action_names=LSTM_ACTIONS,
+            reward_function={"type": "citylearn.reward_function.ComfortReward",
+                             "attributes": {"band": 2.0}},
+            extra={"central_agent": True})
+    return _write_schema(root, n_rows, seed, OBSERVATIONS + NEIGHBORHOOD_OBSERVATIONS,
+                         {"cooling_or_heating_device", "electrical_storage"}, buildings,
+                         action_names=LSTM_ACTIONS)

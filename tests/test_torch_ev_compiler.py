@@ -129,7 +129,7 @@ def test_pack_equals_jax(compiled):
         np.testing.assert_array_equal(v.numpy(), carried[k].numpy(), err_msg=k)
     state = flatten(initial_state(cfg, params, 3))
     jstate = jax_leaves(jax_initial_state(jcfg, jparams, 3))
-    assert len(state) == 12 and state["ev_soc"].shape == (V,)
+    assert len(state) == 18 and state["ev_soc"].shape == (V,)     # 6 zero-sized occupant leaves
     for k, v in state.items():
         np.testing.assert_array_equal(v.numpy(), jstate[k], err_msg=k)
     if cfg.has_charging_constraints:

@@ -128,8 +128,9 @@ def test_initial_state_equals_jax(compiled, variant):
     jcfg, jparams, _ = jax_pack(jspec)
     ours = flatten(initial_state(cfg, params, 5))
     ref = jax_leaves(jax_initial_state(jcfg, jparams, 5))
-    # 12 leaves of a district without dynamics and 3 per group
-    assert len(ours) == 12 + 3 * len(cfg.dyn_groups)
+    # 18 leaves of a district without dynamics (6 of them the zero-sized
+    # occupant carry) and 3 per group
+    assert len(ours) == 18 + 3 * len(cfg.dyn_groups)
     for k, v in ours.items():
         np.testing.assert_array_equal(v.numpy(), ref[k], err_msg=k)
     lookback, L, H, F = cfg.dyn_groups[-1][:4]
@@ -235,16 +236,20 @@ def test_writer_is_deterministic(tmp_path, kw):
 
 
 def test_occupants_still_raise(tmp_path):
+    """Of the two blocks this family once refused, the float64 parity mode
+    still raises; an occupant block now compiles (an occupant whose
+    parameter file is missing fails on the file) and steps."""
     path = write_lstm_dataset(str(tmp_path), n_rows=48)
     with open(path) as f:
         schema = json.load(f)
     schema["root_directory"] = str(tmp_path)
     b = schema["buildings"]["Building_1"]
     b["type"] = "citylearn.building.LogisticRegressionOccupantInteractionBuilding"
-    b["occupant"] = {"type": "citylearn.occupant.LogisticRegressionOccupant"}
-    with pytest.raises(NotImplementedError, match="occupant"):
+    b["occupant"] = {"type": "citylearn.occupant.LogisticRegressionOccupant",
+                     "parameters_filename": "missing.csv"}
+    with pytest.raises(FileNotFoundError, match="missing.csv"):
         compile_schema(schema)
     cfg = pack(compile_schema(path), device="cpu")[0]
-    for flag in ("has_occupant", "parity_f64"):
-        with pytest.raises(NotImplementedError, match=flag):
-            check_supported(dataclasses.replace(cfg, **{flag: True}))
+    check_supported(dataclasses.replace(cfg, has_occupant=True))
+    with pytest.raises(NotImplementedError, match="parity_f64"):
+        check_supported(dataclasses.replace(cfg, parity_f64=True))

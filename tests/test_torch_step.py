@@ -109,9 +109,9 @@ def test_rollout_districts_hour_rbc_matches_jax(dataset, central):
 def test_unsupported_configuration_raises(dataset):
     (cfg, params), _ = _both(dataset, "default", False)
     states = rollout.batched_initial_states(cfg, params, 1, device="cpu")
-    occupants = dataclasses.replace(cfg, has_occupant=True)
-    with pytest.raises(NotImplementedError, match="has_occupant"):
-        rollout.rollout_districts(occupants, params, states, 2, rollout.hour_rbc_policy(RBC),
+    parity = dataclasses.replace(cfg, parity_f64=True)
+    with pytest.raises(NotImplementedError, match="parity_f64"):
+        rollout.rollout_districts(parity, params, states, 2, rollout.hour_rbc_policy(RBC),
                                   device="cpu")
 
 

@@ -93,7 +93,7 @@ def test_pack_equals_jax(datasets, heating):
     assert torch.isfinite(caps).any() and torch.isinf(caps).any()
     ours_state = flatten(initial_state(cfg, params, 5))
     ref_state = jax_leaves(jax_initial_state(jcfg, jparams, 5))
-    assert len(ours_state) == 12
+    assert len(ours_state) == 18               # 6 zero-sized occupant leaves
     for k, v in ours_state.items():
         np.testing.assert_array_equal(v.numpy(), ref_state[k], err_msg=k)
 
