@@ -107,16 +107,20 @@ Phases, each of which raises on failure:
      occupant post-pass) against its plain version on K6's recorded demand
      observations: the EULP district over 168 steps, the quebec district
      over 720 steps with its inert decision trees replaced by a
-     hand-written tree so that triggers, holds and reversions run;
-     temperature within 2e-4 |T| + 5e-3 C, occupant decisions identical
-     except where the temperature's tolerance straddles one (counted);
+     hand-written tree so that triggers, holds and reversions run, and
+     LSTM districts of 20 units and of 50 beside 8 (hidden sizes outside
+     the kernel's compiled paths) over 168 steps of K5's plain cooling
+     observations; temperature within 2e-4 |T| + 5e-3 C, occupant decisions
+     identical except where the temperature's tolerance straddles one
+     (counted);
  24. the neighborhood main path, with the launch counts reset just before
      and read just after: ``evaluate_scripted`` at D=4096 over the full year
      on the EULP district, one K6 and one P6 launch; then the kernel-backed
      table against the stepped ``evaluate_districts`` on the quebec district
      over 168 steps and on the EULP district over 48 steps;
  25. times with CUDA events: K6 per launch and its bound, P6 for the year
-     and its bound, the full-year ``evaluate_scripted``.
+     over 10 launches, its bound and its chain floor, the full-year
+     ``evaluate_scripted`` over 5.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -188,6 +192,9 @@ QUEBEC_STEPS = 720            # K6 and P6 on the quebec district against their p
 EULP_TABLE_STEPS = 48         # the EULP district's kernel-vs-stepped table (12 LSTM groups)
 PEAK_FP32 = 67e12             # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
+# the least cycles one LSTM cell of P6's dependent chain takes: a tree of
+# multiply-adds, two activations, the exchange of the hidden vector
+CELL_CYCLES = 100
 START = time.perf_counter()   # the phases print the seconds since
 # expected bit-equal (-fmad=false, IEEE div/sqrt); held to these errors
 # relative to each output's largest magnitude
@@ -1078,6 +1085,21 @@ def neighborhood_path(dev, results):
         raise AssertionError(f"the occupants never acted in full: {counts}")
     print(f"quebec occupants (plain run): {counts}; buildings parted at a near-threshold "
           f"step: {parted} of {qcfg.n_buildings}")
+    # the path of hidden sizes outside the compiled ones (weights through
+    # L1, wider blocks): LSTM districts of 20 units, and of 50 beside 8, on
+    # the cooling observations of K5's plain version
+    for name, kw in (("20 units", dict(hidden_size=20)),
+                     ("50 units beside 8", dict(heterogeneous=True))):
+        with tempfile.TemporaryDirectory() as tmp:
+            schema = write_lstm_dataset(tmp, n_rows=N_ROWS, seed=SEED, **kw)
+            wcfg, wparams = pack(compile_schema(schema, episode_time_steps=SHORT_STEPS + 1),
+                                 device=dev)[:2]
+        k5_rec = k5.lstm_episode_reference(
+            **lstm_episode_inputs(wcfg, wparams, 1, lstm_plans()), record=True)[9]
+        cool = (k5_rec[k5.R_COUT] + k5_rec[k5.R_CBAL].neg().clamp(min=0.0)).contiguous()
+        _, _, err, _, _ = compare_postpass(f"LSTM district of {name}, {SHORT_STEPS} steps", wcfg,
+                                           wparams, cool, torch.zeros_like(cool), SHORT_STEPS, 0)
+        p6_err = max(p6_err, err)
 
     phase("24. neighborhood main path")
     policy = ScriptedPolicy(tables)
@@ -1127,7 +1149,7 @@ def neighborhood_path(dev, results):
     bound_ms = max(bytes_ms, ops_ms)
     post = p6.postpass_inputs(cfg, params, out[7][k6.R_COUT][:, :].contiguous(),
                               out[7][k6.R_HOUT].contiguous(), S)
-    p6_ms = time_cuda(lambda: p6.postpass_kernel(**post), 1)
+    p6_ms = time_cuda(lambda: p6.postpass_kernel(**post), 10)
     p6_out = p6.postpass_kernel(**post)
     if not torch.isfinite(p6_out[0]).all():
         raise AssertionError("P6 put out a non-finite temperature over the year")
@@ -1136,7 +1158,13 @@ def neighborhood_path(dev, results):
     p6_bytes_ms, p6_ops_ms = p6_bytes / PEAK_BYTES * 1e3, p6_ops / PEAK_FP32 * 1e3
     p6_bound_ms = max(p6_bytes_ms, p6_ops_ms)
     eval_ms = time_cuda(lambda: evaluate_scripted(cfg, params, policy, n_districts=D,
-                                                  device=dev), 1)
+                                                  device=dev), 5)
+    # P6's chain: the cells of its longest building run one after another
+    lookback = post["lookback"]
+    chain_cells = max(max(S - lookback, 0) * lookback * u[k5.M_LAYERS]
+                      for u in post["weights"].units)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    chain_ms = chain_cells * CELL_CYCLES / (clock_mhz * 1e3)
     power = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     print(f"K6 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s); "
           f"plain {k6_plain_ms:.2f} ms for {QUARTER_STEPS} steps; bound {bound_ms:.4f} ms "
@@ -1146,8 +1174,9 @@ def neighborhood_path(dev, results):
     print(f"P6 {p6_ms:.2f} ms for the year of {B} buildings; plain {p6_plain_ms:.2f} ms for "
           f"{SHORT_STEPS} steps; bound {p6_bound_ms:.4f} ms ({p6_ops:.4g} fp32 ops -> "
           f"{p6_ops_ms:.4f} ms, {p6_bytes} bytes -> {p6_bytes_ms:.5f} ms), share of bound "
-          f"{p6_bound_ms / p6_ms:.3%}; build: "
-          f"{results.get('ptxas', {}).get('neighborhood_postpass')}")
+          f"{p6_bound_ms / p6_ms:.3%}; chain floor {chain_ms:.3f} ms ({chain_cells} cells in "
+          f"sequence x {CELL_CYCLES} cycles at {clock_mhz:.0f} MHz), {p6_ms / chain_ms:.2f}x "
+          f"of it; build: {results.get('ptxas', {}).get('neighborhood_postpass')}")
     print(f"evaluate_scripted full year at D={D}: {eval_ms:.3f} ms; nvidia-smi sm clock, draw, "
           f"limit, temp: {power}")
     results.update(
@@ -1156,6 +1185,7 @@ def neighborhood_path(dev, results):
         k6_launches=launches, k6_district_steps_per_s=D * S / kernel_ms * 1e3,
         p6_ms=p6_ms, p6_plain_ms=p6_plain_ms, p6_plain_steps=SHORT_STEPS,
         p6_bound_ms=p6_bound_ms, p6_bound_ops=p6_ops, p6_bound_bytes=p6_bytes,
+        p6_chain_cells=chain_cells, p6_chain_floor_ms=chain_ms,
         p6_max_abs_err=p6_err, p6_launches=p6_launches, p6_quebec_parted=parted,
         p6_quebec_occupants=counts, neighborhood_table_error=worst,
         neighborhood_evaluate_scripted_ms=eval_ms, neighborhood_main_path_s=main_s,

@@ -7,14 +7,16 @@ coupling, the lookback-window stacked LSTM that predicts the indoor
 temperature (re-run every step from its carried state) and the
 ComfortReward, under four shared open-loop plans — the whole district step
 of the 2023 family fused over the episode. On CUDA tensors it launches the
-hand-written kernel ``csrc/lstm_episode.cu``: one thread per (district,
-building) runs all S steps; the gate products of the LSTM are computed in
-the kernel, each multiply-add serving 32 districts at once, with the
-weights read through L1. It is bound by operations (about 3e4 per
-building-step, nearly all of them in the gate products). On CPU tensors
-the wrapper runs :func:`lstm_episode_reference`, the plain PyTorch version
-of the same function, which the tests and ``chip_smoke.py`` hold the
-kernel against.
+hand-written kernel ``csrc/lstm_episode.cu``: a block holds districts of
+one building; a group of eight lanes per district runs its LSTM,
+each lane the four gate rows of its hidden units, the group's hidden vector
+exchanged through shared memory, and one thread per district runs its
+physics, one step ahead of the LSTM; the building's weights and the static
+channels' products (once per row, for every district of the block) sit in
+shared memory. It is bound by operations (about 2e4 per building-step,
+nearly all of them in the gate products). On CPU tensors the wrapper runs
+:func:`lstm_episode_reference`, the plain PyTorch version of the same
+function, which the tests and ``chip_smoke.py`` hold the kernel against.
 
 Layout at the public function follows the JAX kernel's without its TPU
 padding, block-diagonal weight matrices and one-hot scatter matrices:
@@ -70,7 +72,7 @@ from citylearn_tpu_torch.ops.thermal import (
 
 MAX_HIDDEN = 64      # csrc/lstm_common.cuh MAX_H
 MAX_CHANNELS = 32    # csrc/lstm_common.cuh MAX_F
-MAX_LOOKBACK = 95    # the ring of one block of 64 threads fits 48 KB of shared memory
+MAX_LOOKBACK = 95    # the limit of the first kernel, kept
 
 
 def pad4(n: int) -> int:
@@ -173,26 +175,32 @@ def operation_count(actions: Sequence[torch.Tensor], weights: LstmWeights, n_kno
                     lookback: int, n_districts: int) -> int:
     """fp32 operations the kernel executes for these plans. Per
     building-step from ``t >= lookback`` on: ``lookback`` cells per layer,
-    each ``2 * 4H * (F_in + H)`` for the gate products on the unpadded
-    weights, 4H gate activations, H more for ``tanh(c)`` and 4H for the new
-    (c, h); the head's 2H + 2. Per building-step of the physics: one
-    battery event and the sums (:func:`ops.battery.operation_count`; the
-    kernel runs the early or the late event, never both), the thermal
-    blocks as :func:`ops.thermal.operation_count` counts them, 12 for the
-    partial load, 8 for the flexibility caps, 6 for the normalizations
-    and 14 for the reward."""
+    each ``2 * 4H * (n_in + H)`` for the gate products (``n_in``: layer 1's
+    two dynamic channels, the cooling demand and the temperature; layer 2's
+    H inputs), 4H gate activations, H more for ``tanh(c)`` and 4H for the
+    new (c, h); the head's 2H + 2. Per building and row of the static
+    stream that a window reads (rows 1 to S - 1 once S > lookback), shared by
+    all districts: ``2 * 4H`` per static channel for layer 1's static
+    products. Per building-step of the physics: one battery event and the
+    sums (:func:`ops.battery.operation_count`; the kernel runs the early or
+    the late event, never both), the thermal blocks as
+    :func:`ops.thermal.operation_count` counts them, 12 for the partial
+    load, 8 for the flexibility caps, 6 for the normalizations and 14 for
+    the reward."""
     a_cdev, a_cstor, a_dstor, a_bat = actions
     S = a_bat.shape[0]
-    lstm = 0
+    lstm = static = 0
+    windows = max(S - lookback, 0)
     for L, H, F, *_ in weights.units:
-        cell = 2 * 4 * H * (F + H) + 9 * H
+        cell = 2 * 4 * H * (2 + H) + 9 * H
         if L == 2:
             cell += 2 * 4 * H * (H + H) + 9 * H
-        lstm += max(S - lookback, 0) * (lookback * cell + 2 * H + 2)
+        lstm += windows * (lookback * cell + 2 * H + 2)
+        static += (S - 1 if windows else 0) * 2 * 4 * H * (F - 2)
     discharging = int((a_cstor < 0).sum()) + int((a_dstor < 0).sum())
     physics = a_bat.numel() * (14 + 4 + 17 + 2 * 30 + 12 + 8 + 6 + 14) + 2 * discharging
     return (_battery.operation_count(a_bat, n_knots, n_districts)
-            + n_districts * (physics + lstm))
+            + n_districts * (physics + lstm) + static)
 
 
 def _powe(d: torch.Tensor, e: float) -> torch.Tensor:
@@ -368,7 +376,7 @@ _PTR = ctypes.c_void_p
 @functools.cache
 def _launcher():
     fn = _build.load("lstm_episode").lstm_episode_launch
-    fn.argtypes = [_PTR] * 42 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [_PTR]
+    fn.argtypes = [_PTR] * 42 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
@@ -450,7 +458,9 @@ def lstm_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor]
     err = _launcher()(*[x.data_ptr() for x in inputs], meta.data_ptr(),
                       *[x.data_ptr() for x in outs],
                       None if rec is None else rec.data_ptr(),
-                      D, B, S, X, n_knots, lookback, hours_ratio, ratio, lo_exp, hi_exp, stream)
+                      D, B, S, X, n_knots, lookback,
+                      max(u[M_HIDDEN] for u in weights.units), hours_ratio, ratio, lo_exp,
+                      hi_exp, stream)
     if err != 0:
         raise RuntimeError(f"lstm_episode kernel launch failed: CUDA error {err}")
     lstm_episode.launches += 1

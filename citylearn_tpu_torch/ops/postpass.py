@@ -10,12 +10,17 @@ predicted temperature. Under open-loop plans both are the same for every
 district, so they run once, not D times.
 
 On CUDA tensors it launches the hand-written kernel
-``csrc/neighborhood_postpass.cu``: one thread per building runs all S steps,
-its lookback ring of the two or three dynamic channels in shared memory,
-the stacked LSTM over the window (``csrc/lstm_common.cuh``), the head, then
-the logistic interaction probability, the decision-tree walk, the hold
-counter and the NaN-coded set-point overrides. Buildings never couple, so
-nothing synchronises. On CPU tensors the wrapper runs
+``csrc/neighborhood_postpass.cu``: a block per building runs all S steps,
+a thread per gate row of each layer (:func:`block_threads`), the hidden
+vectors exchanged through shared memory with one barrier per window
+position, layer 1 of one position beside layer 2 of the one before; the
+bias and static channels' products once per row and the dynamic channels,
+staged in shared memory a chunk of steps at a time, the head a warp-shuffle
+reduction, then on one thread the logistic interaction probability, the
+decision-tree walk, the hold counter and the NaN-coded set-point
+overrides. What bounds it is the chain of 2 x lookback dependent cells a
+step, ~10-16 ms for a year, far above its operations bound. Buildings
+never couple, so blocks never meet. On CPU tensors the wrapper runs
 :func:`neighborhood_postpass_reference`, the plain version: a step loop over
 the port's own :func:`core.step.dynamics_update` and
 :func:`core.step.occupant_update`, which the tests hold against the JAX
@@ -37,6 +42,10 @@ from citylearn_tpu_torch.core.step import OCC_FIELDS, dynamics_update, occupant_
 from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops.lstm import (
+    M_COOL_CH,
+    M_HEAT_CH,
+    M_HIDDEN,
+    M_TEMP_CH,
     MAX_CHANNELS,
     MAX_HIDDEN,
     MAX_LOOKBACK,
@@ -68,20 +77,40 @@ class OccState(NamedTuple):
     occ_prev_hsp: torch.Tensor
 
 
+def _dynamic_channels(unit) -> int:
+    """How many of the temperature, cooling- and heating-demand channels a
+    building of :class:`LstmWeights` ``units`` reads."""
+    return sum(unit[k] >= 0 for k in (M_TEMP_CH, M_COOL_CH, M_HEAT_CH))
+
+
 def operation_count(weights: LstmWeights, lookback: int, n_steps: int) -> int:
     """fp32 operations the kernel executes over ``n_steps`` steps for the
-    buildings of ``weights`` on a district without occupants. Per
-    building-step from ``t >= lookback`` on: ``lookback`` cells per layer,
-    each ``2 * 4H * (F_in + H)`` for the gate products, 4H gate
-    activations, H for ``tanh(c)`` and 4H for the new (c, h); the head's
-    2H + 2. Per building-step: 6 for the normalizations."""
+    buildings of ``weights`` on a district without occupants. Per building
+    and row of the static stream that a window reads (rows 1 to S - 1 once
+    ``n_steps > lookback``): ``2 * 4H`` per static channel for layer 1's
+    static products. Per building-step from ``t >= lookback`` on:
+    ``lookback`` cells per layer, each ``2 * 4H * (n_in + H)`` for the gate
+    products (``n_in``: layer 1's dynamic channels, layer 2's H inputs), 4H
+    gate activations, H for ``tanh(c)`` and 4H for the new (c, h); the
+    head's 2H + 2. Per building-step: 6 for the normalizations."""
     total = 0
-    for L, H, F, *_ in weights.units:
-        cell = 2 * 4 * H * (F + H) + 9 * H
+    for u in weights.units:
+        L, H, F = u[:3]
+        n_dyn = _dynamic_channels(u)
+        cell = 2 * 4 * H * (n_dyn + H) + 9 * H
         if L == 2:
             cell += 2 * 4 * H * (H + H) + 9 * H
-        total += max(n_steps - lookback, 0) * (lookback * cell + 2 * H + 2)
+        windows = max(n_steps - lookback, 0)
+        rows = n_steps - 1 if windows else 0
+        total += windows * (lookback * cell + 2 * H + 2) + rows * 2 * 4 * H * (F - n_dyn)
     return total + len(weights.units) * n_steps * 6
+
+
+def block_threads(weights: LstmWeights) -> int:
+    """Threads per block of the kernel's launch: a thread per gate row of
+    the widest building's layer, rounded up to whole warps."""
+    widest = max(u[M_HIDDEN] for u in weights.units)
+    return (4 * widest + 31) // 32 * 32
 
 
 def neighborhood_postpass_reference(cfg: StaticConfig, params: DistrictParams,
@@ -173,7 +202,7 @@ _PTR = ctypes.c_void_p
 @functools.cache
 def _launcher():
     fn = _build.load("neighborhood_postpass").neighborhood_postpass_launch
-    fn.argtypes = [_PTR] * 32 + [ctypes.c_int] * 6 + [_PTR]
+    fn.argtypes = [_PTR] * 32 + [ctypes.c_int] * 7 + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
@@ -236,7 +265,8 @@ def postpass_kernel(weights: LstmWeights, prows: torch.Tensor, schan: torch.Tens
                       schan.data_ptr(), *[x.data_ptr() for x in series], *occ_ptrs,
                       *[x.data_ptr() for x in out], final[0].data_ptr(), final[1].data_ptr(),
                       counter.data_ptr(), *[x.data_ptr() for x in final[2:]],
-                      B, S, X, lookback, n_nodes, depth, stream)
+                      B, S, X, lookback, n_nodes, depth, block_threads(weights),
+                      stream)
     if err != 0:
         raise RuntimeError(f"the post-pass kernel launch failed: CUDA error {err}")
     postpass_kernel.launches += 1

@@ -299,14 +299,17 @@ def test_weights_round_trip_and_operation_count(port_districts):
     assert float(chan[:, [4, 11, 16, 23]].abs().max()) == 0.0 and float(chan[:, 0].max()) > 0
     n_knots = inputs["curves"][0].shape[0]
     count = lambda acts, D: k5.operation_count(acts, weights, n_knots, 4, D)
-    base = count(inputs["actions"], 1)
-    assert count(inputs["actions"], 7) == 7 * base
-    cell8 = 2 * 32 * 20 + 2 * 32 * 16 + 2 * 9 * 8
-    cell50 = 2 * 200 * 62 + 9 * 50
+    # layer 1 multiplies its two dynamic channels per cell and its 10 static
+    # ones once per building and row of the stream that a window reads
+    # (rows 1 to S - 1), for all districts at once
+    cell8 = 2 * 32 * 10 + 2 * 32 * 16 + 2 * 9 * 8
+    cell50 = 2 * 200 * 52 + 9 * 50
     lstm = (S - 4) * (3 * (4 * cell8 + 18) + 4 * cell50 + 102)
+    static = (S - 1) * (3 * 2 * 32 * 10 + 2 * 200 * 10)
     idle = [torch.zeros_like(a) for a in inputs["actions"]]
-    assert count(idle, 1) - lstm == k5._battery.operation_count(idle[3], n_knots, 1) \
+    assert count(idle, 1) - lstm - static == k5._battery.operation_count(idle[3], n_knots, 1) \
         + idle[3].numel() * 135
+    assert count(idle, 7) - 7 * count(idle, 1) == -6 * static
     discharging = [idle[0], idle[1] - 1.0, idle[2] - 1.0, idle[3]]
     assert count(discharging, 1) - count(idle, 1) == 2 * 2 * idle[3].numel()
 

@@ -209,7 +209,13 @@ def test_postpass_wrapper(districts):
         p6.postpass_kernel(**inputs)
     assert inputs["occupant"] is None and inputs["series"][0].shape == (24, 6)
     n = p6.operation_count(inputs["weights"], inputs["lookback"], 24)
-    cells = sum(12 * (2 * 4 * H * (F + H) + 9 * H
+    # layer 1 multiplies the dynamic channels per cell, the static ones once
+    # per row of the stream that a window reads (rows 1 to 23)
+    dyn = [sum(u[k] >= 0 for k in (p6.M_TEMP_CH, p6.M_COOL_CH, p6.M_HEAT_CH))
+           for u in inputs["weights"].units]
+    cells = sum(12 * (2 * 4 * H * (n + H) + 9 * H
                       + (2 * 4 * H * 2 * H + 9 * H if L == 2 else 0)) + 2 * H + 2
-                for L, H, F, *_ in inputs["weights"].units)
-    assert n == 12 * cells + 6 * 24 * 6
+                for (L, H, F, *_), n in zip(inputs["weights"].units, dyn))
+    static = sum(23 * 2 * 4 * H * (F - n) for (L, H, F, *_), n in zip(inputs["weights"].units, dyn))
+    assert 2 in dyn and 3 in dyn
+    assert n == 12 * cells + static + 6 * 24 * 6
