@@ -60,14 +60,17 @@ Phases, each of which raises on failure:
      under plans that charge and discharge the batteries and the EVs and
      trigger the machine; once more with the default reward, and once on a
      district with charging constraints whose limits bind, at 168 steps;
+     all bit-equal;
  15. the EV main path, with the launch counts reset just before and read
      just after: ``evaluate_scripted`` at D=4096 over the full year and
      ``evaluate_districts`` with a scripted policy (both K4-backed), then
      at 168 steps the kernel-backed table against the stepped
      ``evaluate_districts`` at D=4096;
- 16. times with CUDA events: K4 per launch and its bound, the full-year
-     ``evaluate_scripted`` and the stepped EV path per step; K4 once more
-     with the default reward, which leaves the reward's phase out;
+ 16. times with CUDA events: K4 per launch and its bound (also by PR
+     4-7's count, the charger requests in every district), its registers
+     and spills, the full-year ``evaluate_scripted`` and the stepped EV path
+     per step; K4 once more with the default reward, which leaves the
+     reward's phase out;
  17. write three seeded LSTM-dynamics districts (3 buildings whose indoor
      temperature follows a 2-layer LSTM of 8 units over a 12-step window
      of 12 channels, a cooling heat pump under the ``cooling_device``
@@ -118,7 +121,9 @@ Phases, each of which raises on failure:
      on the EULP district, one K6 and one P6 launch; then the kernel-backed
      table against the stepped ``evaluate_districts`` on the quebec district
      over 168 steps and on the EULP district over 48 steps;
- 25. times with CUDA events: K6 per launch and its bound, P6 for the year
+ 25. times with CUDA events: K6 per launch and its bound (also by PR
+     6-7's count, the prelude's work in every district), its registers and
+     spills, P6 for the year
      over 10 launches, its bound and its chain floor, the full-year
      ``evaluate_scripted`` over 5.
 
@@ -498,6 +503,8 @@ def compare_ev(label, inputs):
     if not torch.isfinite(ours[10]).all():
         raise AssertionError(f"K4 recorded a non-finite value ({label})")
     print(f"{label}: all 11 outputs bit-equal: {bit_equal}")
+    if not bit_equal:
+        raise AssertionError(f"K4 is not bit-equal to its plain version ({label})")
     return ours, max_abs, bit_equal, plain_ms
 
 
@@ -619,19 +626,25 @@ def ev_path(dev, results):
     n_ops = k4.operation_count(inputs["actions"], inputs["series"][4], *knots, V, D, True)
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # PR 4-7's count: the charger requests and window tests in every district
+    per_district_bound_ms = max(bytes_ms, D * k4.operation_count(
+        inputs["actions"], inputs["series"][4], *knots, V, 1, True) / PEAK_FP32 * 1e3)
     power = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     print(f"K4 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s; "
           f"{default_ms:.4f} ms with the default reward); plain {plain_ms:.2f} ms for "
           f"{QUARTER_STEPS} steps; bound {bound_ms:.4f} ms "
           f"({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> {bytes_ms:.5f} ms), "
-          f"share of bound {bound_ms / kernel_ms:.2%}; "
-          f"nvidia-smi sm clock, draw, limit, temp: {power}")
+          f"share of bound {bound_ms / kernel_ms:.2%}; by PR 4-7's count (the charger requests "
+          f"in every district) {per_district_bound_ms:.4f} ms, "
+          f"{per_district_bound_ms / kernel_ms:.2%}; nvidia-smi sm clock, draw, limit, temp: "
+          f"{power}; build: {results.get('ptxas', {}).get('ev_episode')}")
     print(f"evaluate_scripted full year at D={D}: {eval_ms:.3f} ms; stepped "
           f"evaluate_districts S={SHORT_STEPS} at D={D}: {stepped_ms:.1f} ms "
           f"({stepped_ms / SHORT_STEPS:.3f} ms per step)")
     results.update(
         k4_ms=kernel_ms, k4_default_reward_ms=default_ms, k4_plain_ms=plain_ms,
         k4_plain_steps=QUARTER_STEPS, k4_bound_ms=bound_ms, k4_bound_ops=n_ops,
+        k4_bound_ms_pr7_count=per_district_bound_ms,
         k4_bound_bytes=n_bytes, k4_max_abs_err=max_abs, k4_bit_equal=bit_equal,
         k4_launches=launches, k4_table_error=worst,
         k4_district_steps_per_s=D * S / kernel_ms * 1e3,
@@ -1147,6 +1160,9 @@ def neighborhood_path(dev, results):
     n_ops = k6.operation_count(year["actions"], n_knots, D)
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # PR 6-7's count: the prelude's work in every district
+    per_district_bound_ms = max(bytes_ms, D * k6.operation_count(year["actions"], n_knots, 1)
+                                / PEAK_FP32 * 1e3)
     post = p6.postpass_inputs(cfg, params, out[7][k6.R_COUT][:, :].contiguous(),
                               out[7][k6.R_HOUT].contiguous(), S)
     p6_ms = time_cuda(lambda: p6.postpass_kernel(**post), 10)
@@ -1169,7 +1185,9 @@ def neighborhood_path(dev, results):
     print(f"K6 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s); "
           f"plain {k6_plain_ms:.2f} ms for {QUARTER_STEPS} steps; bound {bound_ms:.4f} ms "
           f"({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> {bytes_ms:.5f} ms), "
-          f"share of bound {bound_ms / kernel_ms:.2%}; build: "
+          f"share of bound {bound_ms / kernel_ms:.2%}; by PR 6-7's count (the prelude's work in "
+          f"every district) {per_district_bound_ms:.4f} ms, "
+          f"{per_district_bound_ms / kernel_ms:.2%}; build: "
           f"{results.get('ptxas', {}).get('neighborhood_episode')}")
     print(f"P6 {p6_ms:.2f} ms for the year of {B} buildings; plain {p6_plain_ms:.2f} ms for "
           f"{SHORT_STEPS} steps; bound {p6_bound_ms:.4f} ms ({p6_ops:.4g} fp32 ops -> "
@@ -1182,6 +1200,7 @@ def neighborhood_path(dev, results):
     results.update(
         k6_ms=kernel_ms, k6_plain_ms=k6_plain_ms, k6_plain_steps=QUARTER_STEPS,
         k6_bound_ms=bound_ms, k6_bound_ops=n_ops, k6_bound_bytes=n_bytes, k6_max_abs_err=k6_err,
+        k6_bound_ms_pr7_count=per_district_bound_ms,
         k6_launches=launches, k6_district_steps_per_s=D * S / kernel_ms * 1e3,
         p6_ms=p6_ms, p6_plain_ms=p6_plain_ms, p6_plain_steps=SHORT_STEPS,
         p6_bound_ms=p6_bound_ms, p6_bound_ops=p6_ops, p6_bound_bytes=p6_bytes,
@@ -1226,7 +1245,8 @@ def main(json_path=None):
     logs = _build.build()
     results["build_s"] = time.perf_counter() - t0
     results["ptxas"] = {name: [line.strip() for line in log.splitlines()
-                               if "registers" in line or "spill" in line]
+                               if "registers" in line or "spill" in line
+                               or "entry function" in line]
                         for name, log in logs.items()}
     for name, lines in results["ptxas"].items():
         for line in lines:

@@ -7,21 +7,40 @@
 // _episode_kernel). The Pallas kernel tiles 256 districts x 128 lanes,
 // streams sixteen series through VMEM in double-buffered chunks and moves
 // state between charger and EV lanes with one-hot matrix products; none of
-// that carries over. Here one warp owns one district. Its carried state
-// (battery, EV and machine state, the three sums) and the values that
-// cross lanes live in shared memory, and each step runs in phases
-// separated by __syncwarp():
+// that carries over. One launch runs two kernels:
 //
-//   1. EV lanes apply the SOC events, machine lanes their trigger;
-//   2. building lanes and charger lanes together run ONE battery event
-//      each, the building's own or that of the EV connected to the
-//      charger, read straight from the EV's row (a direct indexed read and
-//      write in place of the gather and scatter products);
-//   3. building lanes sum their chargers and machines, in charger order,
-//      and do the accounting;
-//   4. with the EV reward: a tree sum of the district's net load, the
-//      per-building multiplier, the per-charger terms on the charger lanes,
-//      and their sum into buildings, in charger order.
+//   1. the prelude, a stateless thread per (step, lane), computes what
+//      every district shares under open-loop plans: each charger's request
+//      (the energy handed to the EV's battery event, the energy of the
+//      action, the charger's efficiency) and each machine's window test,
+//      and packs them with the step's other rows into one float row per
+//      step, (S, F) scratch that the wrapper allocates;
+//   2. the district pass: a warp per district, WARPS districts a block.
+//      The block keeps one copy in shared memory of what its districts
+//      share: the building and EV battery tables and knots (the lookups
+//      unrolled and predicated), the charger parameters,
+//      the charger-to-building and machine-to-building maps as per-building
+//      lists, and a chunk of packed step rows staged with cp.async, double-
+//      buffered. A district's carried state (battery, EV and machine
+//      state, the three sums) and the values that cross lanes live in
+//      shared memory too, and each step runs in phases separated by
+//      __syncwarp():
+//
+//        1. EV lanes apply the SOC events, machine lanes their trigger;
+//        2. building lanes and charger lanes together run ONE battery
+//           event each, the building's own or that of the EV connected to
+//           the charger, read straight from the EV's row; the event takes
+//           both branches by selects (battery::event_select), so that
+//           lanes that charge and lanes that discharge do not run one
+//           after the other, and its lookups unroll over the larger of the
+//           two knot counts (fixed at compile time for 5, the knot
+//           count of the repo's EV datasets);
+//        3. building lanes sum their chargers and machines, in charger
+//           order, and do the accounting;
+//        4. with the EV reward: a tree sum of the district's net load by
+//           shuffles, the per-building multiplier, the per-charger terms on
+//           the charger lanes, and their sum into buildings, in charger
+//           order.
 //
 // Lanes loop in strides of 32, so any count of buildings, chargers, EVs
 // and machines up to 128 runs. Every floating-point sum has a fixed order
@@ -30,32 +49,42 @@
 // division and square root, every operation rounds as the plain version
 // rounds it.
 //
-// What bounds it on an H100: like K1 and K3, neither bytes (plans and
-// series are shared by every district and stay in L1/L2) nor fp32
-// throughput, but the latency of each step's dependent chain (EV events,
-// then a charger lookup and a battery event, then the sums and the
-// reward) times S steps, with one warp per district in flight. Phase 2
-// takes the building and the EV battery events as one code path, so the
-// two events of the chain cost one; the launch bounds keep every
-// district of a 4096-district batch resident at once.
+// What bounds it on an H100: neither bytes (the packed rows are shared by
+// every district) nor fp32 throughput, but the latency and issue of each
+// step's dependent chain (EV events, then a battery event, then the sums
+// and the reward) times S steps, with one warp per district in flight. The
+// prelude takes the charger's request and its branch off that chain, and
+// shared memory takes the loads of tables, knots and rows off it. The
+// launch bounds (16 warps a block, 2 blocks an SM, 64 registers) keep
+// every district of a 4096-district batch resident at once; the host sizes
+// the chunk so that MIN_BLOCKS blocks fit an SM.
 //
 // Outside the contract: one EV connected to two chargers in the same step
 // (the Pallas kernel adds the two updates, the stepped path keeps one);
 // the data never holds it.
 
+#include <cuda_pipeline.h>
+
+#include <algorithm>
+
 #include "battery_common.cuh"
 
 namespace {
 
-using battery::BatteryView;
+using battery::BatteryShared;
 using battery::interp_at;
 using battery::max_nan;
 using battery::min_nan;
 
-constexpr int WARPS = 4;        // districts per block
-// blocks an SM must hold: caps the kernel at 64 registers, so that an SM
-// holds 32 warps and 4096 districts run on 132 SMs in one wave
-constexpr int MIN_BLOCKS = 8;
+constexpr int WARPS = 16;           // districts per block
+constexpr int MIN_BLOCKS = 2;       // blocks an SM must hold: 64 registers a thread
+constexpr int THREADS = 32 * WARPS;
+constexpr int PRELUDE_THREADS = 256;
+constexpr int MAX_CHUNK = 32;       // steps staged at a time, at most
+constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t SMEM_PER_SM = 233472;     // 228 KB
+constexpr size_t SMEM_PER_BLOCK = 232448;  // 227 KB
+constexpr size_t SMEM_RESERVED = 1024;     // per block, by the system
 
 // recorded rows of district 0, as ops/ev.py names them
 enum Rec { R_NET, R_BBAL, R_BSOC, R_CHC, R_WMC, R_REW };
@@ -74,16 +103,52 @@ struct Args {
     const float *soc0, *eff0, *deg0, *evsoc0, *eveff0, *evdeg0, *wmi0;
     // out
     float *reward, *cost, *emission, *soc, *eff, *deg, *evsoc, *eveff, *evdeg, *wmi, *rec;
-    int D, B, C, V, W, S, n_knots, ev_knots, ch_knots, use_ev_reward;
+    float* stage;     // (S, F) packed step rows, written by the prelude
+    int D, B, C, V, W, S, n_knots, ev_knots, ch_knots, use_ev_reward, chunk;
     float hours_ratio, ratio, penalty;
     // reward weights, products of constants taken on the host
     float w_bl, w_imposs, w_under2, w_under_sq, w_close, w_esp, w_esp_half, w_sc, w_sc_half;
 };
 
-// floats of shared memory one district needs
-__host__ __device__ inline int floats_per_district(int B, int C, int V, int W, int P2) {
-    return 9 * B + 4 * V + 2 * W + 4 * C + P2;
-}
+// Offsets of one step's packed row (ops/ev.py STAGE_ROWS): per building
+// a_bat, nsl, solar, price, carbon, viol; per charger conn (int bits), req,
+// dep, the battery event's energy, the action's energy if it acts (else
+// 0), the charger's efficiency, the action; per EV force, drift; per
+// machine the window test, the re-arm flag, the load. F rounds up to 4.
+struct Row {
+    int abat, nsl, solar, price, carbon, viol;
+    int conn, req, dep, energy, last, effc, aev;
+    int force, drift, wmok, wmchg, wmload, F;
+    __host__ __device__ Row(int B, int C, int V, int W) {
+        int o = 0;
+        abat = o, o += B, nsl = o, o += B, solar = o, o += B;
+        price = o, o += B, carbon = o, o += B, viol = o, o += B;
+        conn = o, o += C, req = o, o += C, dep = o, o += C, energy = o, o += C;
+        last = o, o += C, effc = o, o += C, aev = o, o += C;
+        force = o, o += V, drift = o, o += V;
+        wmok = o, o += W, wmchg = o, o += W, wmload = o, o += W;
+        F = (o + 3) & ~3;
+    }
+};
+
+// Offsets, in floats, of a block's shared memory: the tables, the
+// per-building lists, the two row buffers, then WARPS districts' state.
+struct Smem {
+    int btab, bknots, etab, eknots, cpar, chbld, chstart, chlist, wmstart, wmlist;
+    int rows, district, per_district, total;
+    __host__ __device__ Smem(int B, int C, int V, int W, int nk, int ek, int chunk, int F) {
+        int o = 0;
+        btab = o, o += 8 * B, bknots = o, o += 4 * nk * B;
+        etab = o, o += 8 * V, eknots = o, o += 4 * ek * V;
+        cpar = o, o += 4 * C;
+        chbld = o, o += C, chstart = o, o += B + 1, chlist = o, o += C;
+        wmstart = o, o += B + 1, wmlist = o, o += W;
+        rows = (o + 3) & ~3, o = rows + 2 * chunk * F;
+        district = o;
+        per_district = 9 * B + 4 * V + 2 * W + 3 * C;
+        total = district + WARPS * per_district;
+    }
+};
 
 __host__ __device__ inline int pow2_at_least(int n) {
     int p = 1;
@@ -91,16 +156,136 @@ __host__ __device__ inline int pow2_at_least(int n) {
     return p;
 }
 
-__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS) ev_episode_kernel(const Args p) {
-    extern __shared__ float smem[];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int d = blockIdx.x * WARPS + warp;
-    if (d >= p.D) return;       // whole warps leave; only __syncwarp() follows
-    const int B = p.B, C = p.C, V = p.V, W = p.W, S = p.S;
-    const int P2 = pow2_at_least(B);
+// 1. The prelude: one thread per (step, lane) for lanes up to the widest
+// of B, C, V, W.
+__global__ void __launch_bounds__(PRELUDE_THREADS) prelude_kernel(const Args p) {
+    const int lanes = max(max(p.B, p.C), max(p.V, p.W));
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= p.S * lanes) return;
+    const int t = i / lanes, l = i - t * lanes;
+    const Row R(p.B, p.C, p.V, p.W);
+    float* row = p.stage + static_cast<size_t>(t) * R.F;
+    if (l < p.B) {
+        const int o = t * p.B + l;
+        row[R.abat + l] = p.a_bat[o];
+        row[R.nsl + l] = p.nsl[o];
+        row[R.solar + l] = p.solar[o];
+        row[R.price + l] = p.price[o];
+        row[R.carbon + l] = p.carbon[o];
+        row[R.viol + l] = p.viol[o];
+    }
+    if (l < p.C) {
+        const int C = p.C, c = l, o = t * C + c;
+        // the charger's request: power limits, then its efficiency at
+        // |action| (electric_vehicle_charger.py:252-329)
+        const float a_c = p.a_ev[o];
+        const float maxc = p.cparams[0 * C + c], minc = p.cparams[1 * C + c];
+        const float maxd = p.cparams[2 * C + c], mind = p.cparams[3 * C + c];
+        const bool chg = a_c > 0.f;
+        const float energy_c = chg ? max_nan(min_nan(a_c * maxc * p.hours_ratio, maxc), minc)
+                                   : max_nan(min_nan(a_c * maxd * p.hours_ratio, -mind), -maxd);
+        const float eff_c = chg ? interp_at(fabsf(a_c), p.ch_cx, p.ch_cy, c, C, p.ch_knots)
+                                : interp_at(fabsf(a_c), p.ch_dx, p.ch_dy, c, C, p.ch_knots);
+        row[R.conn + c] = __int_as_float(p.conn[o]);
+        row[R.req + c] = p.req[o];
+        row[R.dep + c] = p.dep[o];
+        row[R.energy + c] = chg ? energy_c * eff_c : energy_c / eff_c;
+        row[R.last + c] = a_c != 0.f ? energy_c : 0.f;
+        row[R.effc + c] = eff_c;
+        row[R.aev + c] = a_c;
+    }
+    if (l < p.V) {
+        row[R.force + l] = p.force[t * p.V + l];
+        row[R.drift + l] = p.drift[t * p.V + l];
+    }
+    if (l < p.W) {
+        const int W = p.W, o = t * W + l;
+        const float ws = p.wm_start[o], we = p.wm_end[o], tf = static_cast<float>(t);
+        // a window that differs from the previous step's re-arms the machine
+        const bool changed = t != 0 && (p.wm_start[o - W] != ws || p.wm_end[o - W] != we);
+        const bool ok = p.a_wm[o] > 0.f && ws != -1.f && we != -1.f && ws <= tf && tf <= we;
+        row[R.wmok + l] = ok ? 1.f : 0.f;
+        row[R.wmchg + l] = changed ? 1.f : 0.f;
+        row[R.wmload + l] = p.wm_load[o];
+    }
+}
 
-    float* soc = smem + warp * floats_per_district(B, C, V, W, P2);
+// 2. The district pass. Warps past D stage rows and wait at the barriers
+// with the others, and compute nothing. NK > 0 bounds the building and EV
+// knot counts at compile time; a lane holds PER_LANE buildings' net loads
+// for the tree sum (1 up to 32 buildings, 4 up to MAX_LANES).
+template <int NK, int PER_LANE>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ev_episode_kernel(const Args p) {
+    extern __shared__ __align__(16) float smem[];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int d = blockIdx.x * WARPS + warp;
+    const bool live = d < p.D;
+    const int B = p.B, C = p.C, V = p.V, W = p.W, S = p.S;
+    const int nk = p.n_knots, ek = p.ev_knots, chunk = p.chunk;
+    const Row R(B, C, V, W);
+    const Smem M(B, C, V, W, nk, ek, chunk, R.F);
+
+    const int n_chunks = (S + chunk - 1) / chunk;
+    auto load_chunk = [&](int c) {
+        float* dst = smem + M.rows + (c & 1) * chunk * R.F;
+        const float* src = p.stage + static_cast<size_t>(c) * chunk * R.F;
+        const int n = min(chunk, S - c * chunk) * R.F / 4;
+        for (int i = tid; i < n; i += THREADS) {
+            __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+        }
+        __pipeline_commit();
+    };
+    load_chunk(0);
+
+    // the block's copy of the tables and maps
+    float* btab = smem + M.btab;
+    float* bknots = smem + M.bknots;
+    float* etab = smem + M.etab;
+    float* eknots = smem + M.eknots;
+    float* cpar = smem + M.cpar;
+    int* chbld = reinterpret_cast<int*>(smem + M.chbld);
+    int* chstart = reinterpret_cast<int*>(smem + M.chstart);
+    int* chlist = reinterpret_cast<int*>(smem + M.chlist);
+    int* wmstart = reinterpret_cast<int*>(smem + M.wmstart);
+    int* wmlist = reinterpret_cast<int*>(smem + M.wmlist);
+    for (int i = tid; i < 8 * B; i += THREADS) btab[i] = p.bparams[i];
+    for (int i = tid; i < nk * B; i += THREADS) {
+        bknots[i] = p.pec_x[i];
+        bknots[nk * B + i] = p.pec_y[i];
+        bknots[2 * nk * B + i] = p.cpc_x[i];
+        bknots[3 * nk * B + i] = p.cpc_y[i];
+    }
+    for (int i = tid; i < 8 * V; i += THREADS) etab[i] = p.evparams[i];
+    for (int i = tid; i < ek * V; i += THREADS) {
+        eknots[i] = p.ev_px[i];
+        eknots[ek * V + i] = p.ev_py[i];
+        eknots[2 * ek * V + i] = p.ev_cx[i];
+        eknots[3 * ek * V + i] = p.ev_cy[i];
+    }
+    for (int i = tid; i < 4 * C; i += THREADS) cpar[i] = p.cparams[i];
+    for (int c = tid; c < C; c += THREADS) chbld[c] = p.ch_bld[c];
+    if (tid == 0) {
+        // each building's chargers and machines, in index order
+        int k = 0;
+        for (int b = 0; b < B; ++b) {
+            chstart[b] = k;
+            for (int c = 0; c < C; ++c) {
+                if (p.ch_bld[c] == b) chlist[k++] = c;
+            }
+        }
+        chstart[B] = k;
+        k = 0;
+        for (int b = 0; b < B; ++b) {
+            wmstart[b] = k;
+            for (int w = 0; w < W; ++w) {
+                if (p.wm_bld[w] == b) wmlist[k++] = w;
+            }
+        }
+        wmstart[B] = k;
+    }
+
+    // this warp's district
+    float* soc = smem + M.district + warp * M.per_district;
     float* eff = soc + B;
     float* deg = eff + B;
     float* rew = deg + B;
@@ -116,230 +301,249 @@ __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS) ev_episode_kernel(cons
     float* wmi = evdeg + V;
     float* wmc = wmi + W;           // machine consumption of this step
     float* cons = wmc + W;          // per charger: consumption,
-    float* last = cons + C;         //   energy of the action,
-    float* socprev = last + C;      //   its EV's SOC before the step,
+    float* socprev = cons + C;      //   its EV's SOC before the step,
     float* perc = socprev + C;      //   reward terms
-    float* red = perc + C;          // P2 floats for the tree sum
-
-    for (int b = lane; b < B; b += 32) {
-        soc[b] = p.soc0[d * B + b];
-        eff[b] = p.eff0[d * B + b];
-        deg[b] = p.deg0[d * B + b];
-        rew[b] = 0.f;
-        cost[b] = 0.f;
-        emis[b] = 0.f;
+    if (live) {
+        for (int b = lane; b < B; b += 32) {
+            soc[b] = p.soc0[d * B + b];
+            eff[b] = p.eff0[d * B + b];
+            deg[b] = p.deg0[d * B + b];
+            rew[b] = 0.f;
+            cost[b] = 0.f;
+            emis[b] = 0.f;
+        }
+        for (int v = lane; v < V; v += 32) {
+            evsoc[v] = p.evsoc0[d * V + v];
+            eveff[v] = p.eveff0[d * V + v];
+            evdeg[v] = p.evdeg0[d * V + v];
+        }
+        for (int w = lane; w < W; w += 32) wmi[w] = p.wmi0[d * W + w];
     }
-    for (int v = lane; v < V; v += 32) {
-        evsoc[v] = p.evsoc0[d * V + v];
-        eveff[v] = p.eveff0[d * V + v];
-        evdeg[v] = p.evdeg0[d * V + v];
-    }
-    for (int w = lane; w < W; w += 32) wmi[w] = p.wmi0[d * W + w];
-    __syncwarp();
+    __syncthreads();
 
     const bool recording = p.rec != nullptr && d == 0;
     const int SB = S * B;
+    const int P2 = pow2_at_least(B);
 
-    for (int t = 0; t < S; ++t) {
-        const bool t0 = t == 0;
-
-        // ---- 1. EV SOC events (force, else drift, else the initial SOC
-        // at t == 0 and 0 after), machine triggers ----
-        for (int v = lane; v < V; v += 32) {
-            const float f = p.force[t * V + v], dr = p.drift[t * V + v];
-            const float base = t0 ? p.evparams[3 * V + v] : 0.f;
-            evnext[v] = f == f ? f
-                      : dr == dr ? min_nan(max_nan(evsoc[v] * dr, 0.f), 1.f) : base;
+    for (int ci = 0; ci < n_chunks; ++ci) {
+        if (ci + 1 < n_chunks) {
+            load_chunk(ci + 1);       // into the buffer the last chunk was read from
+            __pipeline_wait_prior(1);
+        } else {
+            __pipeline_wait_prior(0);
         }
-        for (int w = lane; w < W; w += 32) {
-            const int o = t * W + w;
-            const float ws = p.wm_start[o], we = p.wm_end[o], tf = static_cast<float>(t);
-            // a window that differs from the previous step's re-arms the machine
-            const bool changed = !t0 && (p.wm_start[o - W] != ws || p.wm_end[o - W] != we);
-            const bool initiated = wmi[w] > 0.5f && !changed;
-            const bool trigger = !initiated && p.a_wm[o] > 0.f && ws != -1.f && we != -1.f
-                && ws <= tf && tf <= we;
-            wmc[w] = trigger ? p.wm_load[o] : 0.f;
-            wmi[w] = (initiated || trigger) ? 1.f : 0.f;
-        }
-        __syncwarp();
+        __syncthreads();
+        const int t_first = ci * chunk;
+        const int n_steps = live ? min(chunk, S - t_first) : 0;
+        for (int k = 0; k < n_steps; ++k) {
+            const int t = t_first + k;
+            const bool t0 = t == 0;
+            const float* row = smem + M.rows + (ci & 1) * chunk * R.F + k * R.F;
 
-        // ---- 2. one battery event per building and per charger ----
-        for (int i = lane; i < B + C; i += 32) {
-            const bool building = i < B;
-            const int c = i - B;
-            const float *tab, *px, *py, *cx, *cy;
-            int idx, N, knots, ev = -1;
-            float energy, x_soc, x_eff, x_deg;
-            float a_c = 0.f, energy_c = 0.f, eff_c = 1.f;
-            if (building) {
-                tab = p.bparams, px = p.pec_x, py = p.pec_y, cx = p.cpc_x, cy = p.cpc_y;
-                idx = i, N = B, knots = p.n_knots;
-                x_soc = soc[i], x_eff = eff[i], x_deg = deg[i];
-                energy = p.a_bat[t * B + i] * tab[1 * B + i] * p.hours_ratio;
-            } else {
-                // the charger's request: power limits, then its efficiency
-                // at |action| (electric_vehicle_charger.py:252-329)
-                a_c = p.a_ev[t * C + c];
-                const float maxc = p.cparams[0 * C + c], minc = p.cparams[1 * C + c];
-                const float maxd = p.cparams[2 * C + c], mind = p.cparams[3 * C + c];
-                const bool chg = a_c > 0.f;
-                energy_c = chg ? max_nan(min_nan(a_c * maxc * p.hours_ratio, maxc), minc)
-                               : max_nan(min_nan(a_c * maxd * p.hours_ratio, -mind), -maxd);
-                eff_c = chg ? interp_at(fabsf(a_c), p.ch_cx, p.ch_cy, c, C, p.ch_knots)
-                            : interp_at(fabsf(a_c), p.ch_dx, p.ch_dy, c, C, p.ch_knots);
-                energy = chg ? energy_c * eff_c : energy_c / eff_c;
-                // the connected EV's battery; a lane with no EV steps EV 0
-                // on constants and drops the result
-                ev = p.conn[t * C + c];
-                tab = p.evparams, px = p.ev_px, py = p.ev_py, cx = p.ev_cx, cy = p.ev_cy;
-                idx = max(ev, 0), N = V, knots = p.ev_knots;
-                const bool on = ev >= 0;
-                // the charge reads the evented SOC only at t == 0
-                x_soc = on ? (t0 ? evnext[idx] : evsoc[idx]) : 0.5f;
-                x_eff = on ? eveff[idx] : 1.f;
-                x_deg = on ? evdeg[idx] : 1.f;
+            // ---- 1. EV SOC events (force, else drift, else the initial
+            // SOC at t == 0 and 0 after), machine triggers ----
+            for (int i = lane; i < V + W; i += 32) {
+                if (i < V) {
+                    const float f = row[R.force + i], dr = row[R.drift + i];
+                    const float base = t0 ? etab[3 * V + i] : 0.f;
+                    evnext[i] = f == f ? f
+                              : dr == dr ? min_nan(max_nan(evsoc[i] * dr, 0.f), 1.f) : base;
+                } else {
+                    const int w = i - V;
+                    const bool initiated = wmi[w] > 0.5f && row[R.wmchg + w] == 0.f;
+                    const bool trigger = !initiated && row[R.wmok + w] != 0.f;
+                    wmc[w] = trigger ? row[R.wmload + w] : 0.f;
+                    wmi[w] = (initiated || trigger) ? 1.f : 0.f;
+                }
             }
-            const BatteryView view(tab, px, py, cx, cy, idx, N, knots);
-            const float balance = battery::event(view, energy, p.ratio, x_soc, x_eff, x_deg);
-            if (building) {
-                soc[i] = x_soc, eff[i] = x_eff, deg[i] = x_deg;
-                bal[i] = balance;
-            } else {
-                const bool applied = a_c != 0.f && ev >= 0;
-                const float b_c = applied ? balance : 0.f;
-                cons[c] = applied ? (b_c >= 0.f ? b_c / eff_c : b_c * eff_c) : 0.f;
-                last[c] = a_c != 0.f ? energy_c : 0.f;
-                if (ev >= 0) socprev[c] = t0 ? p.evparams[3 * V + ev] : evsoc[ev];
-                if (applied) evnext[ev] = x_soc, eveff[ev] = x_eff, evdeg[ev] = x_deg;
-            }
-        }
-        __syncwarp();
-
-        // ---- 3. chargers and machines into buildings, accounting with the
-        // t == 0 multi-count (building.py:2615-2703) ----
-        for (int b = lane; b < B; b += 32) {
-            float chc = 0.f, wm_b = 0.f;
-            for (int c = 0; c < C; ++c) {
-                if (p.ch_bld[c] == b) chc = chc + cons[c];
-            }
-            for (int w = 0; w < W; ++w) {
-                if (p.wm_bld[w] == b) wm_b = wm_b + wmc[w];
-            }
-            const int o = t * B + b;
-            const float nsl = p.nsl[o];
-            const float nsl_term = t0 ? 3.f * nsl : nsl;
-            const float bat_term = t0 ? 2.f * bal[b] : bal[b];
-            const float n = nsl_term + bat_term + chc + wm_b - p.solar[o];
-            net[b] = n;
-            cost[b] = cost[b] + n * p.price[o];
-            emis[b] = emis[b] + max_nan(n * p.carbon[o], 0.f);
-            if (recording) {
-                p.rec[R_NET * SB + o] = n;
-                p.rec[R_BBAL * SB + o] = bal[b];
-                p.rec[R_BSOC * SB + o] = soc[b];
-                p.rec[R_CHC * SB + o] = chc;
-                p.rec[R_WMC * SB + o] = wm_b;
-            }
-            if (!p.use_ev_reward) {
-                const float r = -max_nan(n, 0.f);
-                rew[b] = rew[b] + r;
-                if (recording) p.rec[R_REW * SB + o] = r;
-            }
-        }
-
-        // ---- 4. Electric_Vehicles_Reward_Function
-        // (reward_function.py:389-517) ----
-        if (p.use_ev_reward) {
             __syncwarp();
-            // district net load: pairwise tree over P2 slots, zeros past B
-            for (int i = lane; i < P2; i += 32) red[i] = i < B ? net[i] : 0.f;
+
+            // ---- 2. one battery event per building and per charger ----
+            for (int i = lane; i < B + C; i += 32) {
+                const bool building = i < B;
+                const int c = i - B;
+                int ev = -1;
+                float energy, x_soc, x_eff, x_deg;
+                if (building) {
+                    x_soc = soc[i], x_eff = eff[i], x_deg = deg[i];
+                    energy = row[R.abat + i] * btab[1 * B + i] * p.hours_ratio;
+                } else {
+                    // the connected EV's battery; a lane with no EV steps
+                    // EV 0 on constants and drops the result
+                    ev = __float_as_int(row[R.conn + c]);
+                    energy = row[R.energy + c];
+                    const int idx = max(ev, 0);
+                    const bool on = ev >= 0;
+                    // the charge reads the evented SOC only at t == 0
+                    x_soc = on ? (t0 ? evnext[idx] : evsoc[idx]) : 0.5f;
+                    x_eff = on ? eveff[idx] : 1.f;
+                    x_deg = on ? evdeg[idx] : 1.f;
+                }
+                const float* kn = building ? bknots : eknots;
+                const int curve = building ? nk * B : ek * V;
+                const BatteryShared<NK> bat(building ? btab : etab, kn, kn + curve, kn + 2 * curve,
+                                        kn + 3 * curve, building ? i : max(ev, 0),
+                                        building ? B : V, building ? nk : ek);
+                const float balance =
+                    battery::event_select(bat, energy, p.ratio, x_soc, x_eff, x_deg);
+                if (building) {
+                    soc[i] = x_soc, eff[i] = x_eff, deg[i] = x_deg;
+                    bal[i] = balance;
+                } else {
+                    const float a_c = row[R.aev + c], eff_c = row[R.effc + c];
+                    const bool applied = a_c != 0.f && ev >= 0;
+                    const float b_c = applied ? balance : 0.f;
+                    cons[c] = applied ? (b_c >= 0.f ? b_c / eff_c : b_c * eff_c) : 0.f;
+                    if (ev >= 0) socprev[c] = t0 ? etab[3 * V + ev] : evsoc[ev];
+                    if (applied) evnext[ev] = x_soc, eveff[ev] = x_eff, evdeg[ev] = x_deg;
+                }
+            }
             __syncwarp();
-            for (int s = P2 >> 1; s > 0; s >>= 1) {
-                for (int i = lane; i < s; i += 32) red[i] = red[i] + red[i + s];
+
+            // ---- 3. chargers and machines into buildings, accounting with
+            // the t == 0 multi-count (building.py:2615-2703) ----
+            float lane_net[PER_LANE];
+#pragma unroll
+            for (int q = 0; q < PER_LANE; ++q) {
+                const int b = lane + 32 * q;
+                lane_net[q] = 0.f;
+                if (b < B) {
+                    float chc = 0.f, wm_b = 0.f;
+                    for (int j = chstart[b]; j < chstart[b + 1]; ++j) chc = chc + cons[chlist[j]];
+                    for (int j = wmstart[b]; j < wmstart[b + 1]; ++j) wm_b = wm_b + wmc[wmlist[j]];
+                    const float nsl = row[R.nsl + b];
+                    const float nsl_term = t0 ? 3.f * nsl : nsl;
+                    const float bat_term = t0 ? 2.f * bal[b] : bal[b];
+                    const float n = nsl_term + bat_term + chc + wm_b - row[R.solar + b];
+                    net[b] = n;
+                    lane_net[q] = n;
+                    cost[b] = cost[b] + n * row[R.price + b];
+                    emis[b] = emis[b] + max_nan(n * row[R.carbon + b], 0.f);
+                    const int o = t * B + b;
+                    if (recording) {
+                        p.rec[R_NET * SB + o] = n;
+                        p.rec[R_BBAL * SB + o] = bal[b];
+                        p.rec[R_BSOC * SB + o] = soc[b];
+                        p.rec[R_CHC * SB + o] = chc;
+                        p.rec[R_WMC * SB + o] = wm_b;
+                    }
+                    if (!p.use_ev_reward) {
+                        const float r = -max_nan(n, 0.f);
+                        rew[b] = rew[b] + r;
+                        if (recording) p.rec[R_REW * SB + o] = r;
+                    }
+                }
+            }
+
+            // ---- 4. Electric_Vehicles_Reward_Function
+            // (reward_function.py:389-517) ----
+            if (p.use_ev_reward) {
+                // district net load: the pairwise tree over P2 slots, zeros
+                // past B, slot b = lane + 32 q; halves of 64 and 32 slots
+                // add within a lane, the rest by shuffles
+                if constexpr (PER_LANE == 4) {
+                    if (P2 == 128) {
+                        lane_net[0] = lane_net[0] + lane_net[2];
+                        lane_net[1] = lane_net[1] + lane_net[3];
+                    }
+                    if (P2 >= 64) lane_net[0] = lane_net[0] + lane_net[1];
+                }
+                for (int s = min(P2 >> 1, 16); s > 0; s >>= 1) {
+                    lane_net[0] = lane_net[0] + __shfl_down_sync(FULL, lane_net[0], s);
+                }
+                const float total = max_nan(0.f, __shfl_sync(FULL, lane_net[0], 0));
+                for (int b = lane; b < B; b += 32) {
+                    const float neg = -net[b];
+                    const float sign = static_cast<float>((neg > 0.f) - (neg < 0.f));
+                    const float marl = sign * 0.01f * (neg * neg) * total;
+                    mult[b] = 1.f / (1.f + fabsf(marl));
+                }
                 __syncwarp();
-            }
-            const float total = max_nan(0.f, red[0]);
-            for (int b = lane; b < B; b += 32) {
-                const float neg = -net[b];
-                const float sign = static_cast<float>((neg > 0.f) - (neg < 0.f));
-                const float marl = sign * 0.01f * (neg * neg) * total;
-                mult[b] = 1.f / (1.f + fabsf(marl));
+                for (int c = lane; c < C; c += 32) {
+                    const int ev = __float_as_int(row[R.conn + c]);
+                    float r = 0.f;
+                    if (ev >= 0) {
+                        const int bl = chbld[c];
+                        const float m = mult[bl], net_c = net[bl], l = row[R.last + c];
+                        const float g_cap = etab[0 * V + ev], g_dod = etab[4 * V + ev];
+                        const float maxc = cpar[0 * C + c], maxd = cpar[2 * C + c];
+                        const float dep = row[R.dep + c];
+                        const float min_cap = (1.f - g_dod) * g_cap;
+                        const float cur_e = socprev[c] * g_cap + l;
+                        const float c_bl = (cur_e > g_cap || cur_e < min_cap) ? p.w_bl * m : 0.f;
+                        const float soc_diff = evnext[ev] - row[R.req + c];
+                        const float diff_kwh = soc_diff * g_cap;
+                        const float mpc = maxc * dep, mpd = maxd * dep;
+                        const float c_imp = diff_kwh > mpc ? p.w_imposs * m : 0.f;
+                        const bool at_dep = dep == 0.f;
+                        const float c_under =
+                            (at_dep && -0.25f < soc_diff && soc_diff <= -0.10f) ? p.w_under2 * m
+                            : (at_dep && soc_diff <= -0.25f) ? p.w_under_sq * m : 0.f;
+                        const float c_close =
+                            ((at_dep && -0.10f < soc_diff && soc_diff <= 0.10f) ? p.w_close * m
+                                                                                : 0.f)
+                            + (fabsf(diff_kwh) <= max_nan(mpc, mpd)
+                               ? p.w_close * m * (1.f / (dep + 0.1f)) : 0.f);
+                        const float c_esp = (l > 0.f && net_c < 0.f) ? p.w_esp * m
+                                          : (l < 0.f && net_c < 0.f) ? p.w_esp_half * m : 0.f;
+                        const float c_sc = (l < 0.f && net_c > 0.f) ? p.w_sc * m
+                                         : (l > 0.f && net_c > 0.f) ? p.w_sc_half * m : 0.f;
+                        r = c_bl + c_imp + c_under + c_close + c_esp + c_sc;
+                    }
+                    perc[c] = r;
+                }
+                __syncwarp();
+                for (int b = lane; b < B; b += 32) {
+                    float r = 0.f;
+                    for (int j = chstart[b]; j < chstart[b + 1]; ++j) r = r + perc[chlist[j]];
+                    r = r - p.penalty * max_nan(row[R.viol + b], 0.f);
+                    rew[b] = rew[b] + r;
+                    if (recording) p.rec[R_REW * SB + t * B + b] = r;
+                }
             }
             __syncwarp();
-            for (int c = lane; c < C; c += 32) {
-                const int o = t * C + c;
-                const int ev = p.conn[o];
-                float r = 0.f;
-                if (ev >= 0) {
-                    const int bl = p.ch_bld[c];
-                    const float m = mult[bl], net_c = net[bl], l = last[c];
-                    const float g_cap = p.evparams[0 * V + ev], g_dod = p.evparams[4 * V + ev];
-                    const float maxc = p.cparams[0 * C + c], maxd = p.cparams[2 * C + c];
-                    const float dep = p.dep[o];
-                    const float min_cap = (1.f - g_dod) * g_cap;
-                    const float cur_e = socprev[c] * g_cap + l;
-                    const float c_bl = (cur_e > g_cap || cur_e < min_cap) ? p.w_bl * m : 0.f;
-                    const float soc_diff = evnext[ev] - p.req[o];
-                    const float diff_kwh = soc_diff * g_cap;
-                    const float mpc = maxc * dep, mpd = maxd * dep;
-                    const float c_imp = diff_kwh > mpc ? p.w_imposs * m : 0.f;
-                    const bool at_dep = dep == 0.f;
-                    const float c_under =
-                        (at_dep && -0.25f < soc_diff && soc_diff <= -0.10f) ? p.w_under2 * m
-                        : (at_dep && soc_diff <= -0.25f) ? p.w_under_sq * m : 0.f;
-                    const float c_close =
-                        ((at_dep && -0.10f < soc_diff && soc_diff <= 0.10f) ? p.w_close * m : 0.f)
-                        + (fabsf(diff_kwh) <= max_nan(mpc, mpd)
-                           ? p.w_close * m * (1.f / (dep + 0.1f)) : 0.f);
-                    const float c_esp = (l > 0.f && net_c < 0.f) ? p.w_esp * m
-                                      : (l < 0.f && net_c < 0.f) ? p.w_esp_half * m : 0.f;
-                    const float c_sc = (l < 0.f && net_c > 0.f) ? p.w_sc * m
-                                     : (l > 0.f && net_c > 0.f) ? p.w_sc_half * m : 0.f;
-                    r = c_bl + c_imp + c_under + c_close + c_esp + c_sc;
-                }
-                perc[c] = r;
-            }
-            __syncwarp();
-            for (int b = lane; b < B; b += 32) {
-                float r = 0.f;
-                for (int c = 0; c < C; ++c) {
-                    if (p.ch_bld[c] == b) r = r + perc[c];
-                }
-                const int o = t * B + b;
-                r = r - p.penalty * max_nan(p.viol[o], 0.f);
-                rew[b] = rew[b] + r;
-                if (recording) p.rec[R_REW * SB + o] = r;
-            }
+            float* swap = evsoc;
+            evsoc = evnext;
+            evnext = swap;
         }
-        __syncwarp();
-        float* swap = evsoc;
-        evsoc = evnext;
-        evnext = swap;
+        __syncthreads();              // before the next load overwrites this buffer
     }
 
-    for (int b = lane; b < B; b += 32) {
-        const int o = d * B + b;
-        p.reward[o] = rew[b];
-        p.cost[o] = cost[b];
-        p.emission[o] = emis[b];
-        p.soc[o] = soc[b];
-        p.eff[o] = eff[b];
-        p.deg[o] = deg[b];
+    if (live) {
+        for (int b = lane; b < B; b += 32) {
+            const int o = d * B + b;
+            p.reward[o] = rew[b];
+            p.cost[o] = cost[b];
+            p.emission[o] = emis[b];
+            p.soc[o] = soc[b];
+            p.eff[o] = eff[b];
+            p.deg[o] = deg[b];
+        }
+        for (int v = lane; v < V; v += 32) {
+            p.evsoc[d * V + v] = evsoc[v];
+            p.eveff[d * V + v] = eveff[v];
+            p.evdeg[d * V + v] = evdeg[v];
+        }
+        for (int w = lane; w < W; w += 32) p.wmi[d * W + w] = wmi[w];
     }
-    for (int v = lane; v < V; v += 32) {
-        p.evsoc[d * V + v] = evsoc[v];
-        p.eveff[d * V + v] = eveff[v];
-        p.evdeg[d * V + v] = evdeg[v];
-    }
-    for (int w = lane; w < W; w += 32) p.wmi[d * W + w] = wmi[w];
+}
+
+template <int NK, int PER_LANE>
+int launch(const Args& a, size_t shared, cudaStream_t s) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ev_episode_kernel<NK, PER_LANE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ev_episode_kernel<NK, PER_LANE><<<(a.D + WARPS - 1) / WARPS, THREADS, shared, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ptrs: the 51 arrays in Args' order; dims: D, B, C, V, W, S, n_knots,
-// ev_knots, ch_knots, use_ev_reward; scalars: hours_ratio, ratio, penalty
-// and the nine reward weights. All three are host arrays.
+// ptrs: the 51 arrays in Args' order, then the (S, F) scratch; dims: D, B,
+// C, V, W, S, n_knots, ev_knots, ch_knots, use_ev_reward, F (Row's, or the
+// launch is refused); scalars: hours_ratio, ratio, penalty and the nine reward
+// weights. All three are host arrays.
 extern "C" int ev_episode_launch(const void* const* ptrs, const int* dims,
                                  const float* scalars, void* stream) {
     Args a;
@@ -360,6 +564,7 @@ extern "C" int ev_episode_launch(const void* const* ptrs, const int* dims,
     a.evsoc0 = f(), a.eveff0 = f(), a.evdeg0 = f(), a.wmi0 = f();
     a.reward = o(), a.cost = o(), a.emission = o(), a.soc = o(), a.eff = o(), a.deg = o();
     a.evsoc = o(), a.eveff = o(), a.evdeg = o(), a.wmi = o(), a.rec = o();
+    a.stage = o();
     a.D = dims[0], a.B = dims[1], a.C = dims[2], a.V = dims[3], a.W = dims[4], a.S = dims[5];
     a.n_knots = dims[6], a.ev_knots = dims[7], a.ch_knots = dims[8];
     a.use_ev_reward = dims[9];
@@ -368,9 +573,28 @@ extern "C" int ev_episode_launch(const void* const* ptrs, const int* dims,
     a.w_under_sq = scalars[6], a.w_close = scalars[7], a.w_esp = scalars[8];
     a.w_esp_half = scalars[9], a.w_sc = scalars[10], a.w_sc_half = scalars[11];
 
-    const int per_district = floats_per_district(a.B, a.C, a.V, a.W, pow2_at_least(a.B));
-    const size_t shared = sizeof(float) * WARPS * per_district;   // <= 40 KB at 128 lanes
-    const int blocks = (a.D + WARPS - 1) / WARPS;
-    ev_episode_kernel<<<blocks, 32 * WARPS, shared, static_cast<cudaStream_t>(stream)>>>(a);
-    return static_cast<int>(cudaGetLastError());
+    // the longest chunk whose block still lets MIN_BLOCKS blocks share
+    // an SM; one step at the least
+    const Row R(a.B, a.C, a.V, a.W);
+    if (dims[10] != R.F) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t target = SMEM_PER_SM / MIN_BLOCKS - SMEM_RESERVED;
+    a.chunk = MAX_CHUNK;
+    while (a.chunk > 1 && sizeof(float) * Smem(a.B, a.C, a.V, a.W, a.n_knots, a.ev_knots,
+                                               a.chunk, R.F).total > target) {
+        a.chunk >>= 1;
+    }
+    const size_t shared = sizeof(float) * Smem(a.B, a.C, a.V, a.W, a.n_knots, a.ev_knots,
+                                               a.chunk, R.F).total;
+    if (shared > SMEM_PER_BLOCK) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int lanes = std::max(std::max(a.B, a.C), std::max(a.V, a.W));
+    prelude_kernel<<<(a.S * lanes + PRELUDE_THREADS - 1) / PRELUDE_THREADS, PRELUDE_THREADS, 0,
+                     s>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the knot bound fixed at 5 for districts of up to 32 buildings; the
+    // rest bound the lookups at run time
+    if (a.B > 32) return launch<0, 4>(a, shared, s);
+    if (std::max(a.n_knots, a.ev_knots) == 5) return launch<5, 1>(a, shared, s);
+    return launch<0, 1>(a, shared, s);
 }

@@ -5,14 +5,20 @@ battery+PV buildings plus EV chargers, electric vehicles and washing
 machines under three shared open-loop plans (per building, per charger,
 per machine), with the default reward or the
 ``Electric_Vehicles_Reward_Function``. On CUDA tensors it launches the
-hand-written kernel ``csrc/ev_episode.cu``: one warp per district, the
-carried state in shared memory, lanes taking buildings, chargers, EVs and
-machines in turn; a charger lane reads and writes the state of the EV
-connected to it by index. Like K1 and K3 the kernel is bound by the
-latency of each step's dependent chain, not by bytes nor by fp32
-throughput. On CPU tensors the wrapper runs :func:`ev_episode_reference`,
-the plain PyTorch version of the same function, which the tests and
-``chip_smoke.py`` hold the kernel against.
+hand-written kernels of ``csrc/ev_episode.cu`` in one launch call: a
+prelude computes once per step what every district shares (each
+charger's request, each machine's window test) and packs it with the
+step's other rows; then a warp per district runs the episode, the carried
+state and the block's copy of the tables and of a chunk of packed rows in
+shared memory, lanes taking buildings, chargers, EVs and machines in turn;
+a charger lane reads and writes the state of the EV connected to it by
+index. Like K1 and K3 the kernel is bound by the latency of each step's
+dependent chain, not by bytes nor by fp32 throughput. On CPU tensors the
+wrapper runs :func:`ev_episode_reference`, the plain PyTorch version of
+the same function, which the tests and ``chip_smoke.py`` hold the kernel
+against. :func:`ev_prelude_reference` and :func:`ev_district_reference`
+are the plain versions of the two halves, which the tests put together
+to rebuild :func:`ev_episode_reference` bit for bit.
 
 Every floating-point sum that crosses lanes has one fixed order in both
 versions, so that they agree bit for bit: chargers and machines add into
@@ -51,6 +57,9 @@ ROW_CAP, ROW_INIT, ROW_DOD = 0, 3, 4
 
 # recorded per-step series rows (record=True), building lanes
 (R_NET, R_BBAL, R_BSOC, R_CHC, R_WMC, R_REW, N_EREC) = range(7)
+# floats of one step's packed row per building, charger, EV and machine
+# (csrc/ev_episode.cu Row), the row rounded up to 4
+STAGE_ROWS = (6, 7, 2, 3)
 
 
 def operation_count(actions: Sequence[torch.Tensor], conn: torch.Tensor, n_knots: int,
@@ -58,17 +67,18 @@ def operation_count(actions: Sequence[torch.Tensor], conn: torch.Tensor, n_knots
                     use_ev_reward: bool) -> int:
     """fp32 operations (add, sub, mul, div, sqrt, min, max, abs, negate,
     compare) the kernel executes for these plans and this connection
-    stream. Per district: the building battery events, the sums and the
-    net's two operations as K1 counts them
-    (:func:`ops.battery.operation_count`), 2 more for the charger and
-    machine terms of the net and 1 add per charger and per machine; per
-    EV-step 6 for the SOC events; per machine-step 9; per charger-step 12
-    for the request and one lookup of ``ch_knots`` compares and 6
-    operations, and an EV battery event only where an EV is connected (42
-    and two lookups, 5 more when it discharges, 4 for the consumption).
-    With the EV reward: per building-step 9 for the multiplier, 2 for the
-    penalty and 1 for the tree sum, and per connected charger-step 41 for
-    the terms and 1 add into the building."""
+    stream. Once per step, in the prelude that every district shares: per
+    charger 12 for the request and one lookup of ``ch_knots`` compares and
+    6 operations, per machine 7 for the window test. Per district: the
+    building battery events, the sums and the net's two operations as K1
+    counts them (:func:`ops.battery.operation_count`), 2 more for the
+    charger and machine terms of the net and 1 add per charger and per
+    machine; per EV-step 6 for the SOC events; per machine-step 2 for the
+    trigger; per charger-step an EV battery event only where an EV is
+    connected (42 and two lookups, 5 more when it discharges, 4 for the
+    consumption). With the EV reward: per building-step 9 for the
+    multiplier, 2 for the penalty and 1 for the tree sum, and per connected
+    charger-step 41 for the terms and 1 add into the building."""
     a_bat, a_ev, a_wm = actions
     S, C = a_ev.shape
     connected = conn >= 0
@@ -76,12 +86,11 @@ def operation_count(actions: Sequence[torch.Tensor], conn: torch.Tensor, n_knots
     discharging = int(((a_ev <= 0) & connected).sum())
     per_district = (
         _battery.operation_count(a_bat, n_knots, 1) + a_bat.numel() * 2
-        + S * C + a_wm.numel() * (9 + 1) + S * n_evs * 6
-        + S * C * (12 + ch_knots + 6)
+        + S * C + a_wm.numel() * (2 + 1) + S * n_evs * 6
         + n_connected * (42 + 2 * (ev_knots + 6) + 4) + 5 * discharging)
     if use_ev_reward:
         per_district += a_bat.numel() * (9 + 2 + 1) + n_connected * (41 + 1)
-    return n_districts * per_district
+    return n_districts * per_district + S * C * (12 + ch_knots + 6) + a_wm.numel() * 7
 
 
 def _tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +115,37 @@ def _segment_sum(x: torch.Tensor, index: Sequence[int], n: int) -> torch.Tensor:
     for j, b in enumerate(index):
         out[:, b] += x[:, j]
     return out
+
+
+def ev_prelude_reference(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
+                         cparams: torch.Tensor, ch_curves: Sequence[torch.Tensor],
+                         hours_ratio: float) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel's prelude: what every district
+    shares under open-loop plans, for all S steps at once. Returns the
+    charger requests (energy handed to the EV's battery event, the
+    action's energy where the charger acts and 0 elsewhere, the charger's
+    efficiency), each (S, C), and the machines' window tests (the trigger's
+    conditions but the machine's own flag, the re-arm on a changed window),
+    each (S, W) bool, rounding as :func:`ev_episode_reference` does."""
+    _, a_ev, a_wm = actions
+    wm_s, wm_e = series[9], series[10]
+    maxc, minc, maxd, mind = (cparams[r] for r in (CH_MAXC, CH_MINC, CH_MAXD, CH_MIND))
+    ch_cx, ch_cy, ch_dx, ch_dy = ch_curves
+    chg = a_ev > 0.0
+    energy_c = torch.where(
+        chg,
+        torch.maximum(torch.minimum(a_ev * maxc * hours_ratio, maxc), minc),
+        torch.maximum(torch.minimum(a_ev * maxd * hours_ratio, -mind), -maxd))
+    eff_c = torch.where(chg, _interp(torch.abs(a_ev), ch_cx, ch_cy),
+                        _interp(torch.abs(a_ev), ch_dx, ch_dy))
+    energy_kwh = torch.where(chg, energy_c * eff_c, energy_c / eff_c)
+    last = torch.where(a_ev != 0.0, energy_c, torch.zeros_like(energy_c))
+    steps = torch.arange(wm_s.shape[0], device=wm_s.device, dtype=wm_s.dtype)[:, None]
+    window_ok = ((a_wm > 0.0) & (wm_s != -1.0) & (wm_e != -1.0) & (wm_s <= steps)
+                 & (steps <= wm_e))
+    changed = torch.zeros_like(window_ok)
+    changed[1:] = (wm_s[:-1] != wm_s[1:]) | (wm_e[:-1] != wm_e[1:])
+    return energy_kwh, last, eff_c, window_ok, changed
 
 
 def ev_episode_reference(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
@@ -185,6 +225,140 @@ def ev_episode_reference(actions: Sequence[torch.Tensor], series: Sequence[torch
         cons_c = torch.where(applied,
                              torch.where(bal_c >= 0.0, bal_c / eff_c, bal_c * eff_c), zero_c)
         last = torch.where(a_c != 0.0, energy_c, torch.zeros_like(energy_c))
+        # write the applied charges back to their EVs; the others go to a
+        # spare column that is dropped
+        sidx = torch.where(applied, gidx, torch.full_like(gidx, V))
+        put = lambda old, new: torch.cat([old, old[:, :1]], dim=1).index_copy(
+            1, sidx, new)[:, :V]
+        evsoc_n = put(soc_evented, newsoc_c)
+        eveff_n = put(eveff, neweff_c)
+        evdeg_n = put(evdeg, newdeg_c)
+
+        # ---- accounting incl. the t == 0 multi-count ----
+        chc_b = _segment_sum(cons_c, bld, B)
+        wmc_b = _segment_sum(wm_cons, wbld, B)
+        nsl_term = 3.0 * nsl[t] if t == 0 else nsl[t]
+        bat_term = 2.0 * balance if t == 0 else balance
+        net = nsl_term + bat_term + chc_b + wmc_b - solar[t]
+
+        # ---- reward ----
+        if use_ev_reward:
+            neg = -net
+            marl = torch.sign(neg) * 0.01 * (neg * neg) * torch.clamp(_tree_sum(net), min=0.0)
+            mult = (1.0 / (1.0 + torch.abs(marl)))[:, bld_t]
+            net_c = net[:, bld_t]
+            g_cap, g_dod = evparams[ROW_CAP, gidx], evparams[ROW_DOD, gidx]
+            soc_prev_c = (ev_init.expand_as(evsoc) if t == 0 else evsoc)[:, gidx]
+            zero = torch.zeros_like(mult)
+            cur_e = soc_prev_c * g_cap + last
+            c_bl = torch.where((cur_e > g_cap) | (cur_e < (1.0 - g_dod) * g_cap),
+                               w_bl * mult, zero)
+            soc_diff = evsoc_n[:, gidx] - req[t]
+            diff_kwh = soc_diff * g_cap
+            mpc, mpd = maxc * dep[t], maxd * dep[t]
+            c_imp = torch.where(diff_kwh > mpc, w_imposs * mult, zero)
+            at_dep = dep[t] == 0.0
+            c_under = torch.where(
+                at_dep & (-0.25 < soc_diff) & (soc_diff <= -0.10), (2.0 * w_under) * mult,
+                torch.where(at_dep & (soc_diff <= -0.25), (w_under * w_under) * mult, zero))
+            c_close = torch.where(at_dep & (-0.10 < soc_diff) & (soc_diff <= 0.10),
+                                  w_close * mult, zero)
+            c_close = c_close + torch.where(
+                torch.abs(diff_kwh) <= torch.maximum(mpc, mpd),
+                w_close * mult * (1.0 / (dep[t] + 0.1)), zero)
+            c_esp = torch.where((last > 0) & (net_c < 0), w_esp * mult,
+                                torch.where((last < 0) & (net_c < 0),
+                                            (-0.5 * w_esp) * mult, zero))
+            c_sc = torch.where((last < 0) & (net_c > 0), w_sc * mult,
+                               torch.where((last > 0) & (net_c > 0),
+                                           (-0.5 * w_sc) * mult, zero))
+            per_c = torch.where(connected, c_bl + c_imp + c_under + c_close + c_esp + c_sc,
+                                zero)
+            step_rew = _segment_sum(per_c, bld, B) \
+                - penalty_coefficient * torch.clamp(viol[t], min=0.0)
+        else:
+            step_rew = -torch.clamp(net, min=0.0)
+
+        if record:
+            rec.append(torch.stack([net[0], balance[0], soc[0], chc_b[0], wmc_b[0],
+                                    step_rew[0]]))
+        rew = rew + step_rew
+        cost = cost + net * price[t]
+        emis = emis + torch.clamp(net * carbon[t], min=0.0)
+        evsoc, eveff, evdeg = evsoc_n, eveff_n, evdeg_n
+    out = (rew, cost, emis, soc, eff, deg, evsoc, eveff, evdeg, wmi)
+    if record:
+        out = out + (torch.stack(rec, dim=1),)
+    return out
+
+
+def ev_district_reference(prelude: Sequence[torch.Tensor], actions: Sequence[torch.Tensor],
+                          series: Sequence[torch.Tensor], bparams: torch.Tensor,
+                          curves: Sequence[torch.Tensor], cparams: torch.Tensor,
+                          evparams: torch.Tensor, ev_curves: Sequence[torch.Tensor],
+                          ch_bld: torch.Tensor, wm_bld: torch.Tensor,
+                          state0: Sequence[torch.Tensor], hours_ratio: float, ratio: float,
+                          ev_weights: Sequence[float], use_ev_reward: bool,
+                          viol: torch.Tensor = None, penalty_coefficient: float = 1.0,
+                          record: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel's district pass: the loop of
+    :func:`ev_episode_reference` with each step's charger requests and
+    machine window tests read from ``prelude``, the output of
+    :func:`ev_prelude_reference`. Returns what :func:`ev_episode` returns."""
+    energy_kwh_s, last_s, eff_c_s, window_ok_s, changed_s = prelude
+    a_bat, a_ev, _ = actions
+    nsl, solar, price, carbon, conn, req, dep, force, drift, _, _, wm_l = series
+    soc, eff, deg, evsoc, eveff, evdeg, wmi = state0
+    S, B = a_bat.shape
+    V = evsoc.shape[1]
+    if viol is None:
+        viol = torch.zeros_like(nsl)
+    bld, wbld = ch_bld.tolist(), wm_bld.tolist()
+    bld_t = ch_bld.long()
+    maxc, maxd = cparams[CH_MAXC], cparams[CH_MAXD]
+    ev_init = evparams[ROW_INIT]
+    (w_ncc, w_bl, w_imposs, w_under, w_close, w_sc, w_esp) = ev_weights
+    zero_v = torch.zeros_like(ev_init)
+    rew = torch.zeros_like(soc)
+    cost = torch.zeros_like(soc)
+    emis = torch.zeros_like(soc)
+    rec = []
+    for t in range(S):
+        # ---- EV SOC events: force, else drift, else the initial SOC at
+        # t == 0 and 0 after; the charge reads them only at t == 0 ----
+        f, dr = force[t], drift[t]
+        soc_evented = torch.where(
+            ~torch.isnan(f), f,
+            torch.where(~torch.isnan(dr), torch.clamp(evsoc * dr, 0.0, 1.0),
+                        ev_init if t == 0 else zero_v))
+        soc_read = soc_evented if t == 0 else evsoc
+
+        # ---- washing machines ----
+        initiated = (wmi > 0.5) & ~changed_s[t]
+        trigger = ~initiated & window_ok_s[t]
+        wm_cons = torch.where(trigger, wm_l[t].expand_as(wmi), torch.zeros_like(wmi))
+        wmi = (initiated | trigger).to(torch.float32)
+
+        # ---- building battery ----
+        soc, eff, deg, balance = battery_event(bparams, curves, soc, eff, deg, a_bat[t],
+                                               hours_ratio, ratio)
+
+        # ---- charger request, from the prelude ----
+        a_c = a_ev[t]
+        energy_kwh, last, eff_c = energy_kwh_s[t], last_s[t], eff_c_s[t]
+
+        # ---- the connected EV's battery event; a lane with no EV steps
+        # EV 0 and drops the result ----
+        connected = conn[t] >= 0
+        gidx = torch.clamp(conn[t], min=0).long()
+        newsoc_c, neweff_c, newdeg_c, bal_c = _battery.battery_event_energy(
+            evparams[:, gidx], tuple(c[:, gidx] for c in ev_curves), soc_read[:, gidx],
+            eveff[:, gidx], evdeg[:, gidx], energy_kwh, ratio)
+        applied = (a_c != 0.0) & connected
+        zero_c = torch.zeros_like(bal_c)
+        bal_c = torch.where(applied, bal_c, zero_c)
+        cons_c = torch.where(applied,
+                             torch.where(bal_c >= 0.0, bal_c / eff_c, bal_c * eff_c), zero_c)
         # write the applied charges back to their EVs; the others go to a
         # spare column that is dropped
         sidx = torch.where(applied, gidx, torch.full_like(gidx, V))
@@ -341,9 +515,12 @@ def ev_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
     new = lambda *shape: torch.empty(shape, dtype=f32, device=soc0.device)
     outs = [new(D, B) for _ in range(6)] + [new(D, V) for _ in range(3)] + [new(D, W)]
     rec = new(N_EREC, S, B) if record else None
+    row = -(-sum(k * n for k, n in zip(STAGE_ROWS, (B, C, V, W))) // 4) * 4
+    stage = new(S, row)
     (w_ncc, w_bl, w_imposs, w_under, w_close, w_sc, w_esp) = (float(w) for w in ev_weights)
-    ptrs = [x.data_ptr() for x in inputs + outs] + [None if rec is None else rec.data_ptr()]
-    dims = [D, B, C, V, W, S, n_knots, ev_knots, ch_knots, int(bool(use_ev_reward))]
+    ptrs = [x.data_ptr() for x in inputs + outs] + [None if rec is None else rec.data_ptr(),
+                                                    stage.data_ptr()]
+    dims = [D, B, C, V, W, S, n_knots, ev_knots, ch_knots, int(bool(use_ev_reward)), row]
     scalars = [hours_ratio, ratio, penalty_coefficient, w_bl, w_imposs, 2.0 * w_under,
                w_under * w_under, w_close, w_esp, -0.5 * w_esp, w_sc, -0.5 * w_sc]
     stream = torch.cuda.current_stream(soc0.device).cuda_stream

@@ -13,13 +13,19 @@ not part of it: under open-loop plans they are the same for every
 district and run once, after the launch, in the post-pass of
 :mod:`citylearn_tpu_torch.ops.postpass`.
 
-On CUDA tensors it launches the hand-written kernel
-``csrc/neighborhood_episode.cu``: one thread per (district, building)
-runs all S steps with its four carried states and three sums in
-registers. On CPU tensors the wrapper runs
-:func:`neighborhood_episode_reference`, the plain PyTorch version of the
-same function, which the tests and ``chip_smoke.py`` hold the kernel
-against.
+On CUDA tensors it launches the hand-written kernels of
+``csrc/neighborhood_episode.cu`` in one launch call: a prelude computes
+once per (step, building) what every district shares under open-loop plans
+(the COPs, the partial loads, the three end uses and their consumptions),
+then a district pass runs the battery, the DHW tank's decay, the net and
+the sums, a block per (district tile, building) with its building's
+battery knots and the staged per-step rows in shared memory. On CPU
+tensors the wrapper runs :func:`neighborhood_episode_reference`, the plain
+PyTorch version of the same function, which the tests and
+``chip_smoke.py`` hold the kernel against;
+:func:`neighborhood_prelude_reference` and
+:func:`neighborhood_district_reference` are the plain versions of the two
+halves, whose composition the tests hold bit-equal to it.
 
 Layout at the public function follows the JAX kernel's without its TPU
 padding: plans and series are (S, B), ``bparams`` (8, B), curves
@@ -50,23 +56,30 @@ from citylearn_tpu_torch.ops.thermal import _cop
  COOL_ACT, HEAT_ACT, COH_ACT,  # partial-load action availability
  N_NROWS) = range(18)
 
-# recorded per-step series rows (record=True)
+# recorded per-step series rows (record=True): the district pass writes the
+# first N_DISTRICT_REC, the prelude the rest
 (R_NET, R_BBAL, R_BSOC, R_DSOC, R_COUT, R_HOUT, R_DOUT, R_CDEM, R_HDEM,
  N_NREC) = range(10)
+N_DISTRICT_REC = R_COUT
+# the district pass stages its per-step rows in chunks of this many steps
+# (csrc/neighborhood_episode.cu CHUNK, N_STAGE)
+STAGE_CHUNK, N_STAGE = 128, 5
 
 
 def operation_count(actions: Sequence[torch.Tensor], n_knots: int, n_districts: int) -> int:
     """fp32 operations (add, sub, mul, div, min, max, abs, compare) the
-    kernel executes for these plans. Per building-step: the battery event
-    and the sums (:func:`ops.battery.operation_count`, whose net counts two
-    terms), plus 21 for the three COPs, 3 for the reset-time
-    consumptions, 10 for the partial-load fractions and their gates, 10
-    for the partial loads, 12 for the three device outputs and their
-    consumptions, 5 for the tank's decay, 3 for the update-time
+    kernel executes for these plans. Per district and building-step: the
+    battery event and the sums (:func:`ops.battery.operation_count`, whose
+    net counts two terms) and 5 for the DHW tank's decay. Once per
+    building-step, in the prelude that every district shares: 21 for the
+    three COPs, 3 for the reset-time consumptions, 10 for the partial-load
+    fractions and their gates, 10 for the partial loads, 12 for the three
+    device outputs and their consumptions, 3 for the update-time
     consumptions and 11 for the accounting's other terms."""
     a_bat = actions[3]
     return (_battery.operation_count(a_bat, n_knots, n_districts)
-            + n_districts * a_bat.numel() * (21 + 3 + 10 + 10 + 12 + 5 + 3 + 11))
+            + n_districts * a_bat.numel() * 5
+            + a_bat.numel() * (21 + 3 + 10 + 10 + 12 + 3 + 11))
 
 
 def neighborhood_episode_reference(actions: Sequence[torch.Tensor],
@@ -158,13 +171,107 @@ def neighborhood_episode_reference(actions: Sequence[torch.Tensor],
     return out
 
 
+def neighborhood_prelude_reference(actions: Sequence[torch.Tensor],
+                                   series: Sequence[torch.Tensor], nparams: torch.Tensor,
+                                   hours_ratio: float, lookback: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel's prelude: what every district
+    shares under open-loop plans, for all S steps at once. Returns ``pre``
+    (S, B), the net consumption up to the battery's term
+    ``((cool_total + heat_total) + dhw_total) + nsl_term``, and the
+    (N_NREC - N_DISTRICT_REC, S, B) rows ``R_COUT`` ... ``R_HDEM``, rounding
+    every operation as :func:`neighborhood_episode_reference` does."""
+    a_coh, a_cdev, a_hdev, _ = actions
+    nsl, _, _, _, cool_d, heat_d, dhw_d, outdoor, mode = series
+    S = nsl.shape[0]
+    cn, hn, dn = nparams[CN], nparams[HN], nparams[DN]
+    de_eff = nparams[DE]
+    hhp = nparams[HHP] > 0.5
+    coh_active = nparams[COH_ACT] > 0.5
+    cool_ctl = (nparams[COOL_ACT] > 0.5) | coh_active
+    heat_ctl = (nparams[HEAT_ACT] > 0.5) | coh_active
+    steps = torch.arange(S, device=nsl.device)[:, None]
+    t0f = (steps == 0).to(nsl.dtype)
+    warm = steps >= lookback + 1
+    zero = torch.zeros_like(nsl)
+    cop_c = _cop(nparams, CN, outdoor, False)
+    cop_h = _cop(nparams, HN, outdoor, True)
+    cop_d = _cop(nparams, DN, outdoor, True)
+    reset_cool = cool_d / cop_c
+    reset_heat = torch.where(hhp, heat_d / cop_h, heat_d / de_eff)
+    reset_dhw = dhw_d / cop_d
+    dev_init_c, dev_init_h, dev_init_d = t0f * reset_cool, t0f * reset_heat, t0f * reset_dhw
+    cool_frac = torch.where(coh_active, torch.abs(torch.clamp(a_coh, max=0.0)), a_cdev)
+    heat_frac = torch.where(coh_active, torch.abs(torch.clamp(a_coh, min=0.0)), a_hdev)
+    elec_c = cool_frac * cn * hours_ratio
+    partial_c = torch.minimum(elec_c, cn - dev_init_c) * cop_c
+    partial_c = torch.where((mode == 1.0) | (mode == 3.0), partial_c, zero)
+    elec_h = heat_frac * hn
+    partial_h = torch.minimum(elec_h, hn - dev_init_h) * cop_h
+    partial_h = torch.where((mode == 2.0) | (mode == 3.0), partial_h, zero)
+    cooling_demand = torch.where(warm & cool_ctl, partial_c, cool_d)
+    heating_demand = torch.where(warm & heat_ctl, partial_h, heat_d)
+    cout = torch.minimum(cooling_demand, (cn - dev_init_c) * cop_c)
+    ccons = torch.clamp(cout / cop_c, min=0.0)
+    hout = torch.minimum(heating_demand, (hn - dev_init_h) * cop_h)
+    hcons = torch.clamp(hout / cop_h, min=0.0)
+    dout = torch.minimum(dhw_d, (dn - dev_init_d) * cop_d)
+    dcons = torch.clamp(dout / cop_d, min=0.0)
+    uv_cool = cout / cop_c
+    uv_heat = torch.where(hhp, hout / cop_h, hout / de_eff)
+    uv_dhw = dout / cop_d
+    cool_total = ccons + t0f * (reset_cool + uv_cool)
+    heat_total = hcons + t0f * (reset_heat + uv_heat)
+    dhw_total = dcons + t0f * (reset_dhw + uv_dhw)
+    nsl_term = nsl + t0f * 2.0 * nsl
+    pre = cool_total + heat_total + dhw_total + nsl_term
+    return pre, torch.stack([cout, hout, dout, cooling_demand, heating_demand])
+
+
+def neighborhood_district_reference(pre: torch.Tensor, series: Sequence[torch.Tensor],
+                                    a_bat: torch.Tensor, bparams: torch.Tensor,
+                                    curves: Sequence[torch.Tensor], nparams: torch.Tensor,
+                                    dsoc0: torch.Tensor, soc0: torch.Tensor,
+                                    eff0: torch.Tensor, deg0: torch.Tensor,
+                                    hours_ratio: float, ratio: float,
+                                    record: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel's district pass: from the
+    prelude's ``pre`` and the (solar, price, carbon) rows of ``series``,
+    the battery, the DHW tank's decay, ``net = (pre + bat_term) - solar``
+    and the sums. Returns the seven outputs of
+    :func:`neighborhood_episode` and, with ``record=True``, the
+    (N_DISTRICT_REC, S, B) rows ``R_NET`` ... ``R_DSOC``."""
+    solar, price, carbon = series
+    dt_cap, dt_loss = nparams[DT_CAP], nparams[DT_LOSS]
+    dsoc, soc, eff, deg = dsoc0, soc0, eff0, deg0
+    rew, cost, emis = (torch.zeros_like(soc0) for _ in range(3))
+    rec = []
+    for t in range(pre.shape[0]):
+        t0f = 1.0 if t == 0 else 0.0
+        denergy = torch.clamp(dsoc * dt_cap * (1.0 - dt_loss), min=0.0)
+        dsoc = denergy / torch.clamp(dt_cap, min=ZERO)
+        soc, eff, deg, balance = battery_event(bparams, curves, soc, eff, deg, a_bat[t],
+                                               hours_ratio, ratio)
+        bat_term = balance + t0f * balance
+        net = pre[t] + bat_term - solar[t]
+        if record:
+            rec.append(torch.stack([net[0], balance[0], soc[0], dsoc[0]]))
+        rew = rew - torch.clamp(net, min=0.0)
+        cost = cost + net * price[t]
+        emis = emis + torch.clamp(net * carbon[t], min=0.0)
+    out = (rew, cost, emis, dsoc, soc, eff, deg)
+    if record:
+        out = out + (torch.stack(rec, dim=1),)
+    return out
+
+
 _PTR = ctypes.c_void_p
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("neighborhood_episode").neighborhood_episode_launch
-    fn.argtypes = [_PTR] * 31 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_PTR]
+    fn.argtypes = [_PTR] * 32 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
@@ -217,10 +324,12 @@ def neighborhood_episode(actions: Sequence[torch.Tensor], series: Sequence[torch
     outs = [torch.empty((D, B), dtype=torch.float32, device=soc0.device) for _ in range(7)]
     rec = (torch.empty((N_NREC, S, B), dtype=torch.float32, device=soc0.device)
            if record else None)
+    s_pad = -(-S // STAGE_CHUNK) * STAGE_CHUNK
+    stage = torch.empty((B, N_STAGE, s_pad), dtype=torch.float32, device=soc0.device)
     stream = torch.cuda.current_stream(soc0.device).cuda_stream
     err = _launcher()(*[x.data_ptr() for x in inputs + outs],
-                      None if rec is None else rec.data_ptr(),
-                      D, B, S, n_knots, lookback, hours_ratio, ratio, stream)
+                      None if rec is None else rec.data_ptr(), stage.data_ptr(),
+                      D, B, S, s_pad, n_knots, lookback, hours_ratio, ratio, stream)
     if err != 0:
         raise RuntimeError(f"neighborhood_episode kernel launch failed: CUDA error {err}")
     neighborhood_episode.launches += 1

@@ -4,8 +4,10 @@ kernel run in interpret mode (the lane and chunk padding of its TPU
 layout done here); ``apply_charging_constraints_np``,
 ``run_ev_episode`` and ``evaluate_scripted`` against the JAX package's;
 the kernel-backed KPI table against the stepped one; the dispatch of
-``evaluate_districts`` to the kernel path; and, on a CUDA card, the
-hand-written kernel against its plain version.
+``evaluate_districts`` to the kernel path; the plain version of the
+kernel's prelude (what every district shares) read in place of the plain
+version's own per-step charger requests and window tests, bit for bit;
+and, on a CUDA card, the hand-written kernel against its plain version.
 
 Tolerances. Against JAX: 1e-5 relative to each output's scale. XLA:CPU
 contracts ``a + b * c`` into fused multiply-adds (``energy_init + e *
@@ -18,8 +20,8 @@ is the same numpy arithmetic on both sides: exact. On the card: the
 kernel is built with ``-fmad=false`` and IEEE division and square root
 and sums in the plain version's order, so it rounds every operation as
 the plain PyTorch version does; it is held to 1e-6 relative on the
-per-step record and the state and 1e-5 on the episode sums, and is
-expected to be bit-equal.
+per-step record and the state and 1e-5 on the episode sums before it is
+held bit-equal.
 
 The card's machine has no JAX: the JAX side is imported inside the tests
 that compare with it, and the ``gpu`` test runs there with
@@ -219,6 +221,27 @@ def test_reference_matches_jax_interpret(use_ev_reward):
     assert (ours[6] > 0).any()
 
 
+@pytest.mark.parametrize("use_ev_reward", [True, False], ids=["ev_reward", "default_reward"])
+def test_prelude_rebuilds_the_plain_version(district, use_ev_reward):
+    """The charger requests and machine window tests computed once for all
+    steps, as the kernel's prelude does, and read by the per-district
+    loop give the plain version's outputs and rows bit for bit."""
+    (cfg, params), _ = district
+    plans = ScriptedPolicy(PLANS).expanded(cfg, params, S)
+    inputs = rollout_fast.ev_episode_inputs(cfg, params, 3, plans)
+    inputs.update(use_ev_reward=use_ev_reward)
+    prelude = k4.ev_prelude_reference(inputs["actions"], inputs["series"], inputs["cparams"],
+                                      inputs["ch_curves"], inputs["hours_ratio"])
+    assert [tuple(x.shape) for x in prelude] == [(S, C)] * 3 + [(S, W)] * 2
+    assert bool(prelude[3].any()) and (prelude[0] != 0).any()
+    full = k4.ev_episode_reference(**inputs, record=True)
+    del inputs["ch_curves"]
+    split = k4.ev_district_reference(prelude, **inputs, record=True)
+    for name, a, b in zip(OUTPUTS, split, full):
+        assert torch.equal(a, b), name
+    assert (full[10][k4.R_CHC] != 0).any() and (full[10][k4.R_WMC] > 0).any()
+
+
 def test_tree_sum_is_a_sum():
     x = torch.tensor(np.random.RandomState(0).uniform(-1, 1, (5, 17)).astype(np.float32))
     np.testing.assert_allclose(k4._tree_sum(x)[:, 0].numpy(), x.double().sum(-1).numpy(),
@@ -362,7 +385,11 @@ def test_operation_count_follows_the_data():
     inputs = as_torch(random_inputs(1, 24), "cpu")
     conn = inputs["series"][4]
     count = lambda c, reward, d=1: k4.operation_count(inputs["actions"], c, 5, 5, 4, V, d, reward)
-    assert count(conn, True, 7) == 7 * count(conn, True)
+    # the prelude's charger requests and window tests appear once, each
+    # district's share once per district
+    shared = 24 * C * (12 + 4 + 6) + 24 * W * 7
+    assert count(conn, True, 7) - count(conn, True) == 6 * (count(conn, True) - shared)
+    assert count(conn, True, 7) == 7 * count(conn, True) - 6 * shared
     assert count(conn, True) > count(conn, False)
     # a charger with no EV runs no battery event
     assert count(conn, False) > count(torch.full_like(conn, -1), False)
@@ -385,7 +412,8 @@ def test_wrapper_rejects_other_devices_and_sizes(district):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(17, 8, 15, 1), (40, 35, 50, 3)], ids=["smoke", "wide"])
+@pytest.mark.parametrize("shape", [(17, 8, 15, 1), (40, 35, 50, 3), (128, 20, 30, 2)],
+                         ids=["smoke", "wide", "edge"])
 @pytest.mark.parametrize("use_ev_reward", [True, False], ids=["ev_reward", "default_reward"])
 def test_cuda_kernel_matches_reference(shape, use_ev_reward):
     if not torch.cuda.is_available():
@@ -401,3 +429,4 @@ def test_cuda_kernel_matches_reference(shape, use_ev_reward):
     ref = k4.ev_episode_reference(**inputs, **kw)
     for name, a, b in zip(OUTPUTS, ours, ref):
         assert_close(a, b.cpu(), name, rtol=1e-5 if name in SUMS else 1e-6)
+        assert torch.equal(a, b), name

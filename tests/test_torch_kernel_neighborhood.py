@@ -9,7 +9,9 @@ district without a battery against the stepped path's null battery;
 ``eligible_neighborhood``, ``neighborhood_packable`` and ``kernel_family``
 against the JAX package's on every synthetic writer and
 ``tests/golden/quebec_occ``; the writers' files against the ones the earlier
-writers wrote; the wrapper's rejections.
+writers wrote; the wrapper's rejections. The kernel's split into a prelude
+shared by every district and a district pass is held bit-equal to the
+plain version through the two halves' plain versions.
 
 Tolerance: 1e-5 of each output's scale, as for K1-K5 (XLA:CPU contracts
 ``a + b * c`` into one fused multiply-add where the port rounds twice).
@@ -63,13 +65,13 @@ def districts(tmp_path_factory):
     return out
 
 
-def seeded_inputs(cfg, params, seed=0):
-    """K6's inputs at D districts with states that differ from district to
-    district."""
-    inputs = rollout_fast.neighborhood_episode_inputs(cfg, params, D, PLANS)
+def seeded_inputs(cfg, params, seed=0, n_districts=D):
+    """K6's inputs at ``n_districts`` districts with states that differ
+    from district to district."""
+    inputs = rollout_fast.neighborhood_episode_inputs(cfg, params, n_districts, PLANS)
     rng = np.random.RandomState(seed)
     B = cfg.n_buildings
-    rand = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (D, B)).astype(np.float32))
+    rand = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (n_districts, B)).astype(np.float32))
     inputs.update(dsoc0=rand(0.0, 1.0), soc0=rand(0.0, 1.0), eff0=rand(0.85, 0.95),
                   deg0=(inputs["bparams"][0] * rand(0.9, 1.0)).contiguous())
     return inputs
@@ -138,6 +140,29 @@ def test_plain_version_matches_pallas_interpret(districts, name):
         assert set(inputs["series"][8][:, 0].tolist()) == {0.0, 1.0, 3.0}
         assert not torch.equal(ours[1][0], ours[1][1])
     assert not torch.equal(ours[3][0], ours[3][1])
+
+
+@pytest.mark.parametrize("name", ["eulp", "quebec"])
+def test_prelude_and_district_pass_rebuild_the_plain_version(districts, name):
+    """What every district shares (the prelude) and what each district
+    carries (the district pass), composed, equal the plain version bit for
+    bit: outputs and all nine rows."""
+    _, (cfg, params) = districts[name]
+    inputs = seeded_inputs(cfg, params, seed=2, n_districts=37)
+    full = k6.neighborhood_episode_reference(**inputs, record=True)
+    pre, shared_rows = k6.neighborhood_prelude_reference(
+        inputs["actions"], inputs["series"], inputs["nparams"], inputs["hours_ratio"],
+        inputs["lookback"])
+    assert pre.shape == (S, cfg.n_buildings)
+    assert shared_rows.shape == (k6.N_NREC - k6.N_DISTRICT_REC, S, cfg.n_buildings)
+    out = k6.neighborhood_district_reference(
+        pre, inputs["series"][1:4], inputs["actions"][3], inputs["bparams"], inputs["curves"],
+        inputs["nparams"], inputs["dsoc0"], inputs["soc0"], inputs["eff0"], inputs["deg0"],
+        inputs["hours_ratio"], inputs["ratio"], record=True)
+    rec = torch.cat([out[7], shared_rows])
+    for a, b in zip(out[:7] + (rec,), full):
+        assert torch.equal(a, b)
+    assert not torch.equal(out[3][0], out[3][1])          # the DHW tanks differ
 
 
 def test_null_battery_matches_the_stepped_path(districts):
@@ -301,23 +326,33 @@ def test_wrapper_rejections(districts):
 
 
 def test_operation_count(districts):
+    """Each district adds its battery event, sums and tank decay; the
+    prelude's work appears once, whatever the count of districts."""
+    from citylearn_tpu_torch.ops import battery as k1
+
     _, (cfg, params) = districts["eulp"]
     inputs = rollout_fast.neighborhood_episode_inputs(cfg, params, 4, PLANS, n_steps=24)
     n_knots = inputs["curves"][0].shape[0]
-    n = k6.operation_count(inputs["actions"], n_knots, 4)
-    per = n / (4 * 24 * cfg.n_buildings)
-    assert 130 < per < 160
+    count = lambda d: k6.operation_count(inputs["actions"], n_knots, d)
+    a_bat = inputs["actions"][3]
+    per_district = k1.operation_count(a_bat, n_knots, 1) + 5 * a_bat.numel()
+    assert count(7) - count(1) == 6 * per_district
+    shared = count(1) - per_district
+    assert shared == 70 * 24 * cfg.n_buildings
+    assert 60 < per_district / (24 * cfg.n_buildings) < 90
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["eulp", "quebec"])
-def test_cuda_kernel_matches_reference(districts, name):
+@pytest.mark.parametrize("name,n_districts", [("eulp", D), ("quebec", D), ("quebec", 301)],
+                         ids=["eulp", "quebec", "quebec-301"])
+def test_cuda_kernel_matches_reference(districts, name, n_districts):
     """K6 on the card against its plain version: every output and row
-    bit-equal."""
+    bit-equal; at D=301, no multiple of a block's districts, on the quebec
+    district's null battery too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     _, (cfg, params) = districts[name]
-    inputs = seeded_inputs(cfg, params, seed=1)
+    inputs = seeded_inputs(cfg, params, seed=1, n_districts=n_districts)
     dev = {k: (v.cuda() if torch.is_tensor(v) else tuple(x.cuda() for x in v)
                if isinstance(v, tuple) else v) for k, v in inputs.items()}
     before = k6.neighborhood_episode.launches
