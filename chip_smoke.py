@@ -13,14 +13,17 @@ Phases, each of which raises on failure:
   3. write a seeded 5-building, 8760-row battery+PV dataset (the shape of
      ``citylearn_challenge_2022_phase_1``), compile it and pack it on the card;
   4. kernel vs plain: K1 (``battery_episode``) against its plain PyTorch
-     version on the same tensors at D=4096 districts over the full year;
-     the plain version's one run is timed;
+     version on the same tensors at D=4096 districts over the full year,
+     from per-district seeded states, all 6 outputs and 3 recorded rows
+     bit-equal; the plain version's one run is timed;
   5. the main path, with the launch counts reset just before and read just
      after: ``evaluate_scripted`` at D=4096 over the full year and
      ``evaluate_districts`` with a scripted policy (both kernel-backed),
      then at 168 steps the kernel-backed table against the stepped
      ``evaluate_districts`` at D=4096;
-  6. times with CUDA events: K1 per launch and its bound;
+  6. times with CUDA events: K1 per launch, its bound (also by the count
+     that takes the energy request in every district), its chain floor, its
+     registers and spills;
   7. kernel vs plain: K2 (``battery_collect_chunk``) against its plain
      PyTorch version at D=4096 districts x K=64 steps, with and without the
      first-step accounting, and its times;
@@ -39,15 +42,18 @@ Phases, each of which raises on failure:
      version on the same tensors at D=4096 districts over a summer quarter
      of the year (2190 steps: the plain version's run is the long part of
      this script, and the kernel is timed over the full year in phase 12),
-     all 8 outputs and the 9 recorded rows, under plans that take both
-     priority orders of both end uses; the plain version's one run is timed;
+     from per-district seeded states, all 8 outputs and the 9 recorded rows
+     bit-equal, under plans that take both priority orders of both end
+     uses; the plain version's one run is timed;
  11. the thermal main path, with the launch counts reset just before and
      read just after: ``evaluate_scripted`` at D=4096 over the full year
      and ``evaluate_districts`` with a scripted policy (both K3-backed),
      then at 168 steps the kernel-backed table against the stepped
      ``evaluate_districts`` at D=4096;
- 12. times with CUDA events: K3 per launch and its bound, the full-year
-     ``evaluate_scripted`` and the stepped thermal path per step;
+ 12. times with CUDA events: K3 per launch, its bound (also by the count
+     that takes the prelude's work in every district), its chain floor, its
+     registers and spills, the full-year ``evaluate_scripted`` and the
+     stepped thermal path per step;
  13. write a seeded EV district (17 buildings, 8 chargers, 15 EVs, a
      washing machine, 8760 rows, the EV reward: the shape of
      ``citylearn_challenge_2022_phase_all_plus_evs``), compile it and pack
@@ -138,6 +144,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -200,6 +207,13 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 # the least cycles one LSTM cell of P6's dependent chain takes: a tree of
 # multiply-adds, two activations, the exchange of the hidden vector
 CELL_CYCLES = 100
+# Hopper latencies, in cycles, of K1's and K3's chain floor (chain_cycles):
+# a shared-memory load, a MUFU estimate, a move to or from a uniform
+# register; 4 for every other FP32 or integer operation
+SASS_LATENCY = {"LDS": 30, "MUFU": 18, "S2UR": 10, "R2UR": 10}
+SASS_NO_DESTINATION = {"ST", "STS", "STG", "STL", "RED", "ATOM", "BRA", "BSSY", "BSYNC", "CALL",
+                       "RET", "EXIT", "BAR", "NOP", "DEPBAR", "LDGDEPBAR", "WARPSYNC", "LDGSTS"}
+SASS_REGISTER = re.compile(r"\b(U?R\d+|U?P\d+)\b")
 START = time.perf_counter()   # the phases print the seconds since
 # expected bit-equal (-fmad=false, IEEE div/sqrt); held to these errors
 # relative to each output's largest magnitude
@@ -272,6 +286,134 @@ def scaled_error(a, b):
     """(max |a - b|, max |a - b| / max |b|)."""
     diff = float((a - b).abs().max())
     return diff, diff / max(float(b.abs().max()), 1e-30)
+
+
+def with_seeded_states(inputs, gen):
+    """K1's or K3's ``inputs`` with states that differ from district to
+    district: the battery's SOC, efficiency and degraded capacity and,
+    where the kernel takes them, the tanks' SOCs."""
+    shape, dev = inputs["soc0"].shape, inputs["soc0"].device
+    rand = lambda lo, hi: lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    out = dict(inputs, soc0=rand(0.0, 1.0), eff0=rand(0.85, 0.95),
+               deg0=(inputs["bparams"][0] * rand(0.9, 1.0)).contiguous())
+    out.update({k: rand(0.0, 1.0) for k in ("csoc0", "dsoc0") if k in inputs})
+    return out
+
+
+def check_bit_equal(label, names, ours, ref):
+    """Raises unless every output equals its plain version bit for bit;
+    returns the largest |difference|."""
+    worst = 0.0
+    for name, a, b in zip(names, ours, ref):
+        diff = float((a - b).abs().max())
+        worst = max(worst, diff)
+        print(f"{name:11s} max|diff| {diff:.3e}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label} {name} is not bit-equal to its plain version: "
+                                 f"max|diff| {diff:.3e}")
+    return worst
+
+
+def sass_function(text, part):
+    """[(address, instruction)] of the SASS function whose name holds ``part``."""
+    out, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = part in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*?)\s*;?\s*/\*", line)
+        if inside and m:
+            out.append((int(m.group(1), 16), m.group(2).rstrip(" ;")))
+    return out
+
+
+def chain_cycles(name):
+    """The least cycles one step of the district pass of ``csrc/<name>.cu``
+    (K1 or K3) takes: the longest dependent chain through the step loop in
+    the SASS of this checkout's 5-knot build (``cuobjdump -sass``), at
+    ``SASS_LATENCY``. The loop is the longest innermost one, read without
+    the region its fast path skips (the IEEE redo, which holds the calls),
+    each side of every if/else in turn, and divided by the steps a trip
+    runs (the source's ``#pragma unroll`` of the step loop). Returns
+    (cycles a step, {opcode: count} along the longest chain)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    unroll = re.search(r"#pragma unroll (\d+)\n\s*for \(int k = 0; k < n; \+\+k\)",
+                       (_build.CSRC / f"{name}.cu").read_text())
+    steps_per_trip = int(unroll.group(1)) if unroll else 1
+    code = sass_function(text, "district_kernelILi5E")
+    branch = lambda ins: re.match(r"(@!?U?P\d+ )?BRA (0x[0-9a-f]+)", ins)
+    loops = [(int(branch(i).group(2), 16), a) for a, i in code
+             if branch(i) and int(branch(i).group(2), 16) < a]
+    inner = [l for l in loops if not any(o != l and l[0] <= o[0] and o[1] <= l[1] for o in loops)]
+    start, end = max(inner, key=lambda l: l[1] - l[0])
+    body = [(a, i) for a, i in code if start <= a <= end]
+    forward = [(a, int(branch(i).group(2), 16), i.startswith("@")) for a, i in body
+               if branch(i) and int(branch(i).group(2), 16) > a]
+    skipped = [(a, t) for a, t, cond in forward if cond
+               and any("CALL" in i for b, i in body if a < b < t)]
+    redo = max(skipped, key=lambda r: r[1] - r[0])
+    body = [(a, i) for a, i in body if not redo[0] < a < redo[1]]
+    addresses = [a for a, _ in body]
+    diamonds = []          # (then, else) address ranges of an if/else
+    for a, t, cond in forward:
+        if cond and t in addresses and t > a:
+            before = body[addresses.index(t) - 1][1]
+            join = branch(before)
+            if join and not before.startswith("@") and int(join.group(2), 16) > t:
+                diamonds.append(((a, t), (t - 1, int(join.group(2), 16))))
+    best = (0, {})
+    for choice in range(1 << len(diamonds)):
+        drop = [d[(choice >> n) & 1] for n, d in enumerate(diamonds)]
+        ready, via, longest = {}, {}, (0, None)
+        for a, ins in body:
+            if any(lo < a < hi for lo, hi in drop):
+                continue
+            guard, _, rest = ins.partition(" ") if ins.startswith("@") else ("", "", ins)
+            op, _, operands = rest.partition(" ")
+            base = op.split(".")[0]
+            ops = [o.strip() for o in operands.split(",")] if operands else []
+            if base in SASS_NO_DESTINATION:
+                dst = []
+            elif base in ("FSETP", "ISETP", "PLOP3", "FCHK"):
+                dst = [o for o in ops[:2] if re.fullmatch(r"U?P\d+", o)]
+            elif base == "LOP3" and ops and re.fullmatch(r"P\d+", ops[0]):
+                dst = ops[:2]
+            elif len(ops) > 1 and re.fullmatch(r"P\d+", ops[1]) and base in ("IADD3", "LEA", "IMAD"):
+                dst = ops[:2]
+            else:
+                dst = ops[:1]
+            dst = [d for d in dst if SASS_REGISTER.fullmatch(d)]
+            srcs = SASS_REGISTER.findall(guard + " " + ", ".join(ops[len(dst):]))
+            begin = max([ready.get(r, 0) for r in srcs] + [0])
+            finish = begin + SASS_LATENCY.get(base, 4)
+            parent = max(srcs, key=lambda r: ready.get(r, 0), default=None)
+            for d in dst:
+                ready[d] = finish
+                via[d] = (base, via.get(parent) if parent else None)
+            if finish > longest[0] and dst:
+                longest = (finish, dst[0])
+        if longest[0] > best[0]:
+            counts, node = {}, via.get(longest[1])
+            while node:
+                counts[node[0]] = counts.get(node[0], 0) + 1
+                node = node[1]
+            best = (longest[0], counts)
+    return best[0] / steps_per_trip, best[1]
+
+
+def chain_floor_ms(cycles, n_steps):
+    """S steps of a chain of ``cycles`` at the card's highest SM clock:
+    (ms, MHz)."""
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return n_steps * cycles / (clock_mhz * 1e3), clock_mhz
+
+
+def ptxas_report(results, name):
+    """The registers and spills of the district pass's builds of ``name``."""
+    lines = results.get("ptxas", {}).get(name, [])
+    return [line for line in lines if "entry function" not in line]
 
 
 def time_cuda(fn, n):
@@ -376,19 +518,14 @@ def thermal_path(dev, results):
         out["tparams"][k3.DT_CONV] = out["tparams"][k3.DT_CAP]
         return out
 
-    both_orders = with_both_orders(inputs)
-    quarter = with_both_orders(thermal_episode_inputs(
-        cfg, params, D, tables, n_steps=QUARTER_STEPS, data_offset=S // 2))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    both_orders = with_seeded_states(with_both_orders(inputs), gen)
+    quarter = with_seeded_states(with_both_orders(thermal_episode_inputs(
+        cfg, params, D, tables, n_steps=QUARTER_STEPS, data_offset=S // 2)), gen)
     ours = k3.thermal_episode(**quarter, record=True)
     ref, plain_ms = timed_once(lambda: k3.thermal_episode_reference(**quarter, record=True))
-    max_abs = 0.0
-    for name, a, b in zip(THERMAL_OUTPUTS, ours, ref):
-        diff, rel = scaled_error(a, b)
-        max_abs = max(max_abs, diff)
-        tol = TOL_SUM if name in ("reward", "cost", "emission") else TOL_STEP
-        print(f"{name:11s} max|diff| {diff:.3e}  scaled {rel:.3e}  (tolerance {tol:g})")
-        if not rel <= tol:
-            raise AssertionError(f"K3 {name} disagrees with its plain version: {rel}")
+    max_abs = check_bit_equal("K3", THERMAL_OUTPUTS, ours, ref)
+    print(f"8 outputs and {k3.N_TREC} rows bit-equal from per-district seeded states")
     rec = ours[8]
     for row, name in ((k3.R_CBAL, "cooling"), (k3.R_DBAL, "dhw"), (k3.R_BBAL, "battery")):
         if not ((rec[row] > 0).any() and (rec[row] < 0).any()):
@@ -443,12 +580,21 @@ def thermal_path(dev, results):
     n_ops = k3.operation_count(inputs["actions"], n_knots, D)
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # the count with the prelude's work in every district
+    per_district_bound_ms = max(bytes_ms, D * k3.operation_count(inputs["actions"], n_knots, 1)
+                                / PEAK_FP32 * 1e3)
+    cycles, chain = chain_cycles("thermal_episode")
+    chain_ms, clock_mhz = chain_floor_ms(cycles, S)
     power = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     print(f"K3 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s; "
           f"{main_ms:.4f} ms on the main path's inputs, whose DHW tanks never charge); "
           f"plain {plain_ms:.2f} ms for {QUARTER_STEPS} steps; bound {bound_ms:.4f} ms "
           f"({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> {bytes_ms:.5f} ms), "
-          f"share of bound {bound_ms / kernel_ms:.2%}; "
+          f"share of bound {bound_ms / kernel_ms:.2%}; by the count with the prelude's work "
+          f"in every district {per_district_bound_ms:.4f} ms, "
+          f"{per_district_bound_ms / kernel_ms:.2%}; chain floor {chain_ms:.4f} ms ({S} steps "
+          f"x {cycles:g} cycles at {clock_mhz:.0f} MHz, read from this build's SASS along "
+          f"{chain}), {kernel_ms / chain_ms:.2f}x of it; build: {ptxas_report(results, 'thermal_episode')}; "
           f"nvidia-smi sm clock, draw, limit, temp: {power}")
     print(f"evaluate_scripted full year at D={D}: {eval_ms:.3f} ms; stepped "
           f"evaluate_districts S={SHORT_STEPS} at D={D}: {stepped_ms:.1f} ms "
@@ -457,6 +603,8 @@ def thermal_path(dev, results):
         k3_ms=kernel_ms, k3_main_inputs_ms=main_ms, k3_plain_ms=plain_ms,
         k3_plain_steps=QUARTER_STEPS,
         k3_bound_ms=bound_ms, k3_bound_ops=n_ops, k3_bound_bytes=n_bytes,
+        k3_bound_ms_per_district=per_district_bound_ms, k3_chain_floor_ms=chain_ms,
+        k3_chain_cycles=cycles,
         k3_max_abs_err=max_abs, k3_launches=launches, k3_table_error=worst,
         k3_district_steps_per_s=D * S / kernel_ms * 1e3,
         thermal_evaluate_scripted_ms=eval_ms, thermal_stepped_168_ms=stepped_ms,
@@ -1267,16 +1415,11 @@ def main(json_path=None):
 
     phase(f"4. kernel vs plain at D={D}, S={S}")
     inputs = battery_episode_inputs(cfg, params, D, rbc)
-    ours = k1.battery_episode(**inputs, record=True)
-    ref, plain_ms = timed_once(lambda: k1.battery_episode_reference(**inputs, record=True))
-    max_abs = 0.0
-    for name, a, b in zip(OUTPUTS, ours, ref):
-        diff, rel = scaled_error(a, b)
-        max_abs = max(max_abs, diff)
-        tol = TOL_SUM if name in ("reward", "cost", "emission") else TOL_STEP
-        print(f"{name:9s} max|diff| {diff:.3e}  scaled {rel:.3e}  (tolerance {tol:g})")
-        if not rel <= tol:
-            raise AssertionError(f"K1 {name} disagrees with its plain version: {rel}")
+    seeded = with_seeded_states(inputs, torch.Generator(device=dev).manual_seed(SEED))
+    ours = k1.battery_episode(**seeded, record=True)
+    ref, plain_ms = timed_once(lambda: k1.battery_episode_reference(**seeded, record=True))
+    max_abs = check_bit_equal("K1", OUTPUTS, ours, ref)
+    print(f"6 outputs and {k1.N_REC} rows bit-equal from per-district seeded states")
     results["max_abs_err"] = max_abs
 
     phase("5. main path")
@@ -1315,7 +1458,8 @@ def main(json_path=None):
                    district_kpis={k: float(v) for k, v in table.items() if k.startswith("district|")})
 
     phase("6. times")
-    kernel_ms = time_cuda(lambda: k1.battery_episode(**inputs, record=True), 20)
+    kernel_ms = time_cuda(lambda: k1.battery_episode(**seeded, record=True), 20)
+    main_ms = time_cuda(lambda: k1.battery_episode(**inputs, record=True), 20)
     # end to end after warm-up: the full-year kernel-backed table (one K1
     # launch at D=4096 plus the KPI assembly) and the stepped 168-step table
     eval_ms = time_cuda(lambda: evaluate_scripted(cfg, params, policy, n_districts=D,
@@ -1329,16 +1473,28 @@ def main(json_path=None):
     B = N_BUILDINGS
     n_knots = inputs["curves"][0].shape[0]
     n_bytes = 4 * (5 * S * B + 8 * B + 4 * n_knots * B + 3 * D * B + 6 * D * B + 3 * S * B)
-    n_ops = k1.operation_count(inputs["actions"], n_knots, D)
+    n_ops = k1.operation_count(inputs["actions"], n_knots, D, request_once=True)
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # the count with the energy request in every district
+    per_district_bound_ms = max(bytes_ms, k1.operation_count(inputs["actions"], n_knots, D)
+                                / PEAK_FP32 * 1e3)
+    cycles, chain = chain_cycles("battery_episode")
+    chain_ms, clock_mhz = chain_floor_ms(cycles, S)
     power = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
-    print(f"K1 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s); "
-          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
-          f"({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> {bytes_ms:.5f} ms); "
+    print(f"K1 {kernel_ms:.4f} ms/launch ({D * S / kernel_ms * 1e3:.4g} district-steps/s; "
+          f"{main_ms:.4f} ms on the main path's inputs); plain {plain_ms:.2f} ms; bound "
+          f"{bound_ms:.4f} ms ({n_ops:.4g} fp32 ops -> {ops_ms:.4f} ms, {n_bytes} bytes -> "
+          f"{bytes_ms:.5f} ms), share of bound {bound_ms / kernel_ms:.2%}; by the count with "
+          f"the request in every district {per_district_bound_ms:.4f} ms; chain floor "
+          f"{chain_ms:.4f} ms ({S} steps x {cycles:g} cycles at {clock_mhz:.0f} MHz, read from this "
+          f"build's SASS along {chain}), "
+          f"{kernel_ms / chain_ms:.2f}x of it; build: {ptxas_report(results, 'battery_episode')}; "
           f"nvidia-smi sm clock, draw, limit, temp: {power}")
-    results.update(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_ops=n_ops, bound_bytes=n_bytes,
+    results.update(kernel_ms=kernel_ms, main_inputs_ms=main_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_ops=n_ops, bound_bytes=n_bytes,
+                   bound_ms_per_district=per_district_bound_ms, chain_floor_ms=chain_ms,
+                   chain_cycles=cycles,
                    district_steps_per_s=D * S / kernel_ms * 1e3, smi_after=power)
 
     phase(f"7. K2 vs plain at D={D}, K={K_CHUNK}")

@@ -268,11 +268,11 @@ __device__ __forceinline__ void run_block(const Args& a, int b, int d0, float* s
                 float accum = t0f * (reset_cool + reset_dhw + nsl) + balance;
 
                 // cooling takes no hours ratio, DHW does (building.py:1663, 1765)
-                const BlockResult c = cooling.step<true>(cooling_demand, a.a_cstor[o], cop_c, dev_init_c,
-                                                         1.f, a.ratio, csoc, outage, solar, accum);
+                const BlockResult c = cooling.step(cooling_demand, a.a_cstor[o], cop_c, dev_init_c,
+                                                   1.f, a.ratio, csoc, outage, solar, accum);
                 accum = accum + c.cons;
-                const BlockResult w = dhw.step<true>(dhw_d, a.a_dstor[o], cop_d, dev_init_d,
-                                                     a.hours_ratio, a.ratio, dsoc, outage, solar, accum);
+                const BlockResult w = dhw.step(dhw_d, a.a_dstor[o], cop_d, dev_init_d,
+                                               a.hours_ratio, a.ratio, dsoc, outage, solar, accum);
                 accum = accum + w.cons;
                 const float nsl_met = min_nan(nsl, flexibility(outage, solar, accum));
                 accum = accum + nsl_met;

@@ -5,12 +5,14 @@
 // (reference building.py:1641-1823, energy_model.py:157-451, 603-871).
 //
 // Replaces citylearn_tpu/ops/pallas_thermal.py::_cop, _tank and
-// _thermal_block. EndUse::step<false> is the no-outage form (downward
-// electrical flexibility is +inf, so the blocks decouple and the cap
-// compiles away); step<true> caps the device's electric power by the solar
-// generation left during an outage. Every operation rounds as the plain
-// PyTorch version (ops/thermal.py) rounds it, when built with -fmad=false
-// and IEEE division and square root.
+// _thermal_block. EndUse::step caps the device's electric power by the
+// solar generation left during an outage (K5). Without an outage that cap
+// is +inf and the step splits in two halves (K3): EndUse::request, a
+// function of the step and the building alone, and EndUse::serve, the
+// district's tank event on that request and what depends on its balance;
+// serve(request(...)) rounds every value as step does with no outage.
+// Every operation rounds as the plain PyTorch version (ops/thermal.py)
+// rounds it, when built with -fmad=false and IEEE division and square root.
 
 #pragma once
 
@@ -88,6 +90,33 @@ struct BlockResult {
     float cons;      // apply-phase consumption: device plus storage charge
 };
 
+// The district-independent half of a step with no outage.
+struct Request {
+    float step;      // the tank's clamped request e times sqrt(efficiency) (e >= 0) or over it
+    float a, b;      // charging: the device's output and consumption; else the
+                     // demand and the consumption booked before the block
+    bool charge;     // the action is not < 0: the device runs first
+    bool up;         // e >= 0
+};
+
+// The district's half of a step with no outage, and its accounting.
+struct Served {
+    float balance;   // tank energy balance
+    float out;       // energy from the device
+    float total;     // consumption with the t == 0 multi-count
+};
+
+// a / b: IEEE's `/`, or with FAST battery::div_fast, which sets `slow`
+// where its result may not be IEEE's
+template <bool FAST>
+__device__ __forceinline__ float quotient(float a, float b, bool& slow) {
+    if constexpr (FAST) {
+        return battery::div_fast(a, b, slow);
+    } else {
+        return a / b;
+    }
+}
+
 // One end use: a heat pump or electric heater and its tank.
 struct EndUse {
     float nominal, eff, target, conv;
@@ -115,24 +144,18 @@ struct EndUse {
     // (action >= 0) lets the device run first and charges from what
     // nominal power is left; a discharging tank runs before the device.
     // `dev_init` is the device consumption already booked at this index
-    // (non-zero at t == 0 only). With FLEX the electric power the device
-    // may draw is also capped by flexibility(outage, solar, accum), `accum`
-    // being the district-level consumption booked before this block.
-    template <bool FLEX>
+    // (non-zero at t == 0 only). The electric power the device may draw is
+    // also capped by flexibility(outage, solar, accum), `accum` being the
+    // district-level consumption booked before this block.
     __device__ __forceinline__ BlockResult step(float demand, float action, float cop,
                                                 float dev_init, float hours_mul, float ratio,
-                                                float& soc, bool outage = false,
-                                                float solar = 0.f, float accum = 0.f) const {
+                                                float& soc, bool outage, float solar,
+                                                float accum) const {
         const float energy_req = action * conv * hours_mul;
         // the most the device can put out with `booked` consumed by itself
         // and `extra` added to the district's consumption since `accum`
         auto max_out = [&](float booked, float extra) {
-            const float avail = nominal - booked;
-            if constexpr (FLEX) {
-                return min_nan(flexibility(outage, solar, accum + extra), avail) * cop;
-            } else {
-                return avail * cop;
-            }
+            return min_nan(flexibility(outage, solar, accum + extra), nominal - booked) * cop;
         };
         BlockResult r;
         if (!(action < 0.f)) {
@@ -151,6 +174,66 @@ struct EndUse {
             r.cons = max_nan(0.f, r.out / cop) + cons_store;
         }
         return r;
+    }
+
+    // step's first half with no outage: the energy request, the device
+    // side of a charging or idle step, and the tank's clamp of the request
+    // (Tank::step's first lines, with sqrt(efficiency) applied by the sign).
+    __device__ __forceinline__ Request request(float demand, float action, float cop,
+                                               float dev_init, float hours_mul,
+                                               float ratio) const {
+        const float energy_req = action * conv * hours_mul;
+        Request q;
+        q.charge = !(action < 0.f);
+        float energy;
+        if (q.charge) {
+            q.a = min_nan(demand, (nominal - dev_init) * cop);          // out
+            q.b = max_nan(0.f, q.a / cop);                              // cons_dev
+            energy = min_nan((nominal - (dev_init + q.b)) * cop, energy_req) / ratio;
+        } else {
+            q.a = demand;
+            q.b = dev_init;
+            energy = max_nan(-demand, energy_req) / ratio;
+        }
+        float e = energy >= 0.f ? min_nan(energy, tank.max_in) : max_nan(tank.neg_max_out, energy);
+        e = e * ratio;
+        q.up = e >= 0.f;
+        q.step = q.up ? e * tank.rt : e / tank.rt;
+        return q;
+    }
+
+    // step's second half with no outage, from the state `soc`: the tank
+    // event on the request `q` and what depends on its balance, then the
+    // update_variables accounting with the t == 0 multi-count
+    // (building.py:2615-2703); `reset` is the reset-time consumption.
+    // Both sides of the end use are computed and selected by q.charge, so
+    // the step keeps no branch. With FAST every division is
+    // battery::div_fast and `slow` is set where one may not be IEEE's.
+    template <bool FAST>
+    __device__ __forceinline__ Served serve(const Request& q, float cop, float reset, float t0f,
+                                            float& soc, bool& slow) const {
+        const float energy_init = max_nan(0.f, soc * tank.cap * tank.keep);
+        const float fin = q.up ? min_nan(energy_init + q.step, tank.cap)
+                               : max_nan(0.f, energy_init + q.step);
+        soc = quotient<FAST>(fin, tank.cap_safe, slow);
+        const float delta = fin - energy_init;
+        Served s;
+        bool slow_up = false;         // counts only where the quotient is taken
+        const float bal_up = quotient<FAST>(delta, tank.rt, slow_up);
+        s.balance = delta >= 0.f ? bal_up : delta * tank.rt;
+        slow |= delta >= 0.f && slow_up;
+        // 0 for a true discharge; booked as the stepped path books it
+        const float cons_store = quotient<FAST>(max_nan(s.balance, 0.f), cop, slow);
+        const float storage_out = -min_nan(s.balance, 0.f);
+        const float out_dis = min_nan(q.a - storage_out, (nominal - (q.b + cons_store)) * cop);
+        bool slow_dis = false;        // counts only where the discharge side is taken
+        const float cons_dis = max_nan(0.f, quotient<FAST>(out_dis, cop, slow_dis)) + cons_store;
+        s.out = q.charge ? q.a : out_dis;
+        const float cons = q.charge ? q.b + cons_store : cons_dis;
+        slow |= !q.charge && slow_dis;
+        const float uv = quotient<FAST>(s.out + s.balance, cop, slow);
+        s.total = cons + t0f * (reset + uv);
+        return s;
     }
 };
 

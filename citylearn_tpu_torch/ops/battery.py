@@ -1,13 +1,19 @@
 """K1: whole-episode battery+PV rollout of a district batch.
 
 :func:`battery_episode` replaces ``citylearn_tpu/ops/pallas_battery.py::
-battery_episode``. On CUDA tensors it launches the hand-written kernel
-``csrc/battery_episode.cu``: one thread per (district, building) runs
-all S steps with its state in registers. The kernel is bound by the
-latency of each step's dependent chain of curve lookups, divisions and
-square roots, not by bytes (a few MB in all) nor by fp32 throughput;
-its design keeps that chain in registers and leaves shared-memory
-staging and step overlap for later work. On CPU tensors the wrapper runs
+battery_episode``. On CUDA tensors it launches the hand-written kernels of
+``csrc/battery_episode.cu`` in one launch call: a prelude writes the
+per-step rows every district reads (the energy request, the non-shiftable
+load's term, solar, price and carbon) building-major into a scratch, then
+a district pass runs the S-step recurrence, a block per (district tile,
+building) with the building's battery knots and the staged rows in shared
+memory and a thread per district with its state in registers. The kernel
+is bound by the latency of each step's dependent chain of curve lookups,
+divisions and square roots, not by bytes (a few MB in all) nor by fp32
+throughput; a step runs its divisions and square roots without the branch
+to a slow path that nvcc puts around each, and is redone with IEEE
+operations when an operand leaves their fast range, so the bits are
+IEEE's either way. On CPU tensors the wrapper runs
 :func:`battery_episode_reference`, the plain PyTorch version of the same
 function, which the tests and ``chip_smoke.py`` hold the kernel against.
 
@@ -29,18 +35,27 @@ from citylearn_tpu_torch.ops import _build
 ZERO = 1e-6       # reference citylearn/data.py:19
 MAX_KNOTS = 12    # csrc/battery_common.cuh MAX_KNOTS (compiler/spec.CURVE_PAD)
 N_REC = 3         # recorded series rows: net, battery balance, battery soc
+# the district pass stages its per-step rows in chunks of this many steps
+# (csrc/battery_episode.cu CHUNK, N_STAGE)
+STAGE_CHUNK, N_STAGE = 128, 5
 
 
-def operation_count(actions: torch.Tensor, n_knots: int, n_districts: int) -> int:
+def operation_count(actions: torch.Tensor, n_knots: int, n_districts: int,
+                    request_once: bool = False) -> int:
     """fp32 operations (add, sub, mul, div, sqrt, min, max, abs, compare)
     the kernel executes for this plan: per building-step, two curve
     lookups of ``n_knots`` compares and 6 arithmetic operations each, plus
     42 other operations on a charging step (action >= 0) or 47 on a
-    discharging one."""
+    discharging one. With ``request_once`` the energy request's two
+    multiplications (``action * nominal * hours_ratio``) are counted once
+    per building-step, not per district: K1's and K3's preludes compute it
+    for every district."""
     lookups = 2 * (n_knots + 6)
     charging = int((actions >= 0).sum())
     steps = actions.numel()
-    return n_districts * (steps * (42 + lookups) + 5 * (steps - charging))
+    request = 2 * steps
+    count = n_districts * (steps * (42 + lookups) + 5 * (steps - charging))
+    return count - (n_districts - 1) * request if request_once else count
 
 
 def _interp(q: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
@@ -143,7 +158,7 @@ _PTR = ctypes.c_void_p
 @functools.cache
 def _launcher():
     fn = _build.load("battery_episode").battery_episode_launch
-    fn.argtypes = [_PTR] * 20 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [_PTR]
+    fn.argtypes = [_PTR] * 21 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
@@ -189,10 +204,12 @@ def battery_episode(actions: torch.Tensor, series: Sequence[torch.Tensor],
     outs = [torch.empty((D, B), dtype=torch.float32, device=soc0.device) for _ in range(6)]
     rec = (torch.empty((N_REC, S, B), dtype=torch.float32, device=soc0.device)
            if record else None)
+    s_pad = -(-S // STAGE_CHUNK) * STAGE_CHUNK
+    stage = torch.empty((B, N_STAGE, s_pad), dtype=torch.float32, device=soc0.device)
     stream = torch.cuda.current_stream(soc0.device).cuda_stream
     err = _launcher()(*[x.data_ptr() for x in inputs + outs],
-                      None if rec is None else rec.data_ptr(),
-                      D, B, S, n_knots, hours_ratio, ratio, stream)
+                      None if rec is None else rec.data_ptr(), stage.data_ptr(),
+                      D, B, S, s_pad, n_knots, hours_ratio, ratio, stream)
     if err != 0:
         raise RuntimeError(f"battery_episode kernel launch failed: CUDA error {err}")
     battery_episode.launches += 1

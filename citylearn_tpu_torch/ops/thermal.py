@@ -4,14 +4,23 @@
 thermal_episode``: cooling and DHW end uses (heat pump or electric
 heater plus a storage tank each), the battery and PV, under three shared
 open-loop plans — the full no-outage district step fused over the
-episode. On CUDA tensors it launches the hand-written kernel
-``csrc/thermal_episode.cu``: one thread per (district, building) runs all
-S steps with its five carried states and three sums in registers. Like
-K1 the kernel is bound by the latency of each step's dependent chain
-(two COPs, two tank events, the battery event), not by bytes nor by fp32
-throughput. On CPU tensors the wrapper runs
+episode. On CUDA tensors it launches the hand-written kernels of
+``csrc/thermal_episode.cu`` in one launch call: a prelude computes once
+per (step, building) what every district shares under open-loop plans
+(the COPs, the reset-time consumptions, each end use's request and, on a
+charging step, its device side), then a district pass runs the two tank
+events, the battery, the net and the sums, a block per (district tile,
+building) with its building's battery knots and the staged per-step rows
+in shared memory. The kernel is bound by the latency of each step's
+dependent chain (the battery event beside the two tank events), not by
+bytes nor by fp32 throughput; as in K1, a step runs its divisions and
+square roots without nvcc's branch to a slow path and is redone with IEEE
+operations when an operand leaves their fast range. On CPU tensors the wrapper runs
 :func:`thermal_episode_reference`, the plain PyTorch version of the same
-function, which the tests and ``chip_smoke.py`` hold the kernel against.
+function, which the tests and ``chip_smoke.py`` hold the kernel against;
+:func:`thermal_prelude_reference` and :func:`thermal_district_reference`
+are the plain versions of the two halves, whose composition the tests
+hold bit-equal to it.
 
 Layout at the public function follows the JAX kernel's, minus its TPU
 padding: plans and series are (S, B), ``bparams`` (8, B), curves
@@ -29,7 +38,7 @@ import torch
 
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as _battery
-from citylearn_tpu_torch.ops.battery import MAX_KNOTS, ZERO, battery_event
+from citylearn_tpu_torch.ops.battery import MAX_KNOTS, ZERO, battery_event, battery_event_energy
 
 # thermal parameter rows (core/rollout_fast.thermal_episode_inputs packs
 # them; csrc/thermal_common.cuh's Row)
@@ -42,20 +51,31 @@ from citylearn_tpu_torch.ops.battery import MAX_KNOTS, ZERO, battery_event
 # recorded per-step series rows (record=True)
 (R_NET, R_CBAL, R_DBAL, R_BBAL, R_CSOC, R_DSOC, R_BSOC, R_COUT, R_DOUT,
  N_TREC) = range(10)
+# the district pass stages its per-step rows in chunks of this many steps
+# (csrc/thermal_episode.cu CHUNK, N_STAGE)
+STAGE_CHUNK, N_STAGE = 128, 16
 
 
 def operation_count(actions: Sequence[torch.Tensor], n_knots: int, n_districts: int) -> int:
     """fp32 operations (add, sub, mul, div, sqrt, min, max, abs, negate,
-    compare) the kernel executes for these plans. Per building-step: the
-    battery event, the sums and K1's two net operations
-    (:func:`ops.battery.operation_count`), plus 14 for the two COPs, 4 for
-    the reset-time consumptions, 17 more for the thermal accounting, and
-    per end use 30 when its tank charges or idles (action >= 0) or 32 when
-    it discharges."""
+    compare) the kernel executes for these plans. Per district and
+    building-step: the battery event and the sums
+    (:func:`ops.battery.operation_count` with the energy request counted
+    once), K1's two net operations, 14 for the update-time consumptions,
+    the totals, the battery's t == 0 term and the net's other two terms,
+    and per end use 12 for the tank event and the consumption when it
+    charges or idles (action >= 0) or 21 when it discharges. Once per
+    building-step, in the prelude that every district shares: 14 for the
+    two COPs, 4 for the reset-time consumptions, 3 for the non-shiftable
+    load's term, and per end use 18 for the request, the device side and
+    the tank's clamp when it charges or idles or 11 when it discharges."""
     a_cool, a_dhw, a_bat = actions
+    steps = a_bat.numel()
     discharging = int((a_cool < 0).sum()) + int((a_dhw < 0).sum())
-    thermal = a_bat.numel() * (14 + 4 + 17 + 2 * 30) + 2 * discharging
-    return _battery.operation_count(a_bat, n_knots, n_districts) + n_districts * thermal
+    district = steps * (14 + 2 * 12) + 9 * discharging
+    prelude = steps * (14 + 4 + 3 + 2 * 18) - 7 * discharging
+    return (_battery.operation_count(a_bat, n_knots, n_districts, request_once=True)
+            + n_districts * district + prelude)
 
 
 def _cop(tparams: torch.Tensor, dev_off: int, outdoor: torch.Tensor,
@@ -196,13 +216,134 @@ def thermal_episode_reference(actions: Sequence[torch.Tensor], series: Sequence[
     return out
 
 
+# the prelude's rows per end use (thermal_prelude_reference; the kernel's
+# scratch rows ST_C_STEP ... ST_C_RESET and its flag bits)
+END_USE_ROWS = ("step", "a", "b", "cop", "reset", "charge", "up")
+
+
+def _request(tparams: torch.Tensor, dev_off: int, tank_off: int, conv_row: int,
+             demand: torch.Tensor, action: torch.Tensor, cop: torch.Tensor,
+             reset: torch.Tensor, t0f: torch.Tensor, hours_mul: float,
+             ratio: float) -> dict:
+    """The district-independent half of :func:`_thermal_block`
+    (``EndUse::request`` in ``csrc/thermal_common.cuh``): the energy
+    request, the device side of a charging or idle step and the tank's
+    clamp of the request. Returns the rows of ``END_USE_ROWS``:
+    the tank's step (``e * rt`` or ``e / rt`` by the sign of its request
+    ``e``), ``a`` and ``b`` (charging: the device's output and
+    consumption; discharging: the demand and the consumption booked before
+    the block), the COP, the reset-time consumption and the two signs."""
+    nominal = tparams[dev_off]
+    max_in, max_out, rt = tparams[tank_off + 3], tparams[tank_off + 4], tparams[tank_off + 1]
+    dev_init = t0f * reset
+    energy_req = action * tparams[conv_row] * hours_mul
+    charge = ~(action < 0.0)
+    out = torch.minimum(demand, (nominal - dev_init) * cop)
+    cons_dev = torch.clamp(out / cop, min=0.0)
+    charge_e = torch.minimum((nominal - (dev_init + cons_dev)) * cop, energy_req) / ratio
+    discharge_e = torch.maximum(-demand, energy_req) / ratio
+    energy = torch.where(charge, charge_e, discharge_e)
+    e = torch.where(energy >= 0.0, torch.minimum(energy, max_in),
+                    torch.maximum(-max_out, energy))
+    e = e * ratio
+    up = e >= 0.0
+    return dict(step=torch.where(up, e * rt, e / rt), a=torch.where(charge, out, demand),
+                b=torch.where(charge, cons_dev, dev_init), cop=cop, reset=reset,
+                charge=charge, up=up)
+
+
+def thermal_prelude_reference(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
+                              bparams: torch.Tensor, tparams: torch.Tensor,
+                              hours_ratio: float, ratio: float) -> dict:
+    """Plain PyTorch version of the kernel's prelude: what every district
+    shares under open-loop plans, for all S steps at once, rounding every
+    operation as :func:`thermal_episode_reference` does. Returns (S, B)
+    rows: ``cooling`` and ``dhw``, each a dict of ``END_USE_ROWS``
+    (:func:`_request`); ``nsl_term``, the non-shiftable load with its
+    t == 0 triple count; ``solar``, ``price``, ``carbon``; and ``energy``,
+    the battery's request ``a_bat * nominal * hours_ratio``."""
+    a_cool, a_dhw, a_bat = actions
+    nsl, solar, price, carbon, cool_demand, dhw_demand, outdoor = series
+    t0f = (torch.arange(a_bat.shape[0], device=a_bat.device)[:, None] == 0).to(a_bat.dtype)
+    cop_c = _cop(tparams, CN, outdoor, False)
+    cop_d = _cop(tparams, DN, outdoor, True)
+    # cooling takes no hours ratio, DHW does
+    cooling = _request(tparams, CN, CT_CAP, CT_CONV, cool_demand, a_cool, cop_c,
+                       cool_demand / cop_c, t0f, 1.0, ratio)
+    dhw = _request(tparams, DN, DT_CAP, DT_CONV, dhw_demand, a_dhw, cop_d,
+                   dhw_demand / cop_d, t0f, hours_ratio, ratio)
+    return dict(cooling=cooling, dhw=dhw, nsl_term=nsl + t0f * 2.0 * nsl, solar=solar,
+                price=price, carbon=carbon, energy=a_bat * bparams[1] * hours_ratio)
+
+
+def _serve(tparams: torch.Tensor, dev_off: int, tank_off: int, rows: dict, t: int,
+           soc: torch.Tensor, t0f: float) -> Tuple[torch.Tensor, ...]:
+    """The district's half of :func:`_thermal_block` at step ``t``
+    (``EndUse::serve`` in ``csrc/thermal_common.cuh``): the tank event
+    on the prelude's request and what depends on its balance. Returns
+    (soc', balance, device_output, total consumption with the t == 0
+    multi-count)."""
+    nominal = tparams[dev_off]
+    cap, rt, loss = tparams[tank_off], tparams[tank_off + 1], tparams[tank_off + 2]
+    step, a, b, cop, reset = (rows[k][t] for k in END_USE_ROWS[:5])
+    energy_init = torch.clamp(soc * cap * (1.0 - loss), min=0.0)
+    final = torch.where(rows["up"][t], torch.minimum(energy_init + step, cap),
+                        torch.clamp(energy_init + step, min=0.0))
+    new_soc = final / torch.clamp(cap, min=ZERO)
+    delta = final - energy_init
+    balance = torch.where(delta >= 0.0, delta / rt, delta * rt)
+    cons_store = torch.clamp(balance, min=0.0) / cop
+    out_dis = torch.minimum(a - (-torch.clamp(balance, max=0.0)),
+                            (nominal - (b + cons_store)) * cop)
+    charge = rows["charge"][t]
+    out = torch.where(charge, a, out_dis)
+    cons = torch.where(charge, b + cons_store,
+                       torch.clamp(out_dis / cop, min=0.0) + cons_store)
+    uv = (out + balance) / cop
+    return new_soc, balance, out, cons + t0f * (reset + uv)
+
+
+def thermal_district_reference(pre: dict, tparams: torch.Tensor, bparams: torch.Tensor,
+                               curves: Sequence[torch.Tensor], csoc0: torch.Tensor,
+                               dsoc0: torch.Tensor, soc0: torch.Tensor, eff0: torch.Tensor,
+                               deg0: torch.Tensor, ratio: float,
+                               record: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel's district pass: from the rows
+    of :func:`thermal_prelude_reference`, the two tank events and what
+    depends on their balances, the battery event, ``net = (((cool_total +
+    dhw_total) + nsl_term) + bat_term) - solar`` and the sums. Returns
+    the outputs of :func:`thermal_episode`."""
+    csoc, dsoc, soc, eff, deg = csoc0, dsoc0, soc0, eff0, deg0
+    rew, cost, emis = (torch.zeros_like(soc0) for _ in range(3))
+    rec = []
+    for t in range(pre["energy"].shape[0]):
+        t0f = 1.0 if t == 0 else 0.0
+        csoc, cbal, cout, cool_total = _serve(tparams, CN, CT_CAP, pre["cooling"], t, csoc, t0f)
+        dsoc, dbal, dout, dhw_total = _serve(tparams, DN, DT_CAP, pre["dhw"], t, dsoc, t0f)
+        soc, eff, deg, balance = battery_event_energy(bparams, curves, soc, eff, deg,
+                                                      pre["energy"][t], ratio)
+        bat_term = balance + t0f * balance
+        net = cool_total + dhw_total + pre["nsl_term"][t] + bat_term - pre["solar"][t]
+        if record:
+            row = lambda x: x.expand_as(soc)[0]
+            rec.append(torch.stack([row(x) for x in (net, cbal, dbal, balance, csoc, dsoc, soc,
+                                                     cout, dout)]))
+        rew = rew - torch.clamp(net, min=0.0)
+        cost = cost + net * pre["price"][t]
+        emis = emis + torch.clamp(net * pre["carbon"][t], min=0.0)
+    out = (rew, cost, emis, csoc, dsoc, soc, eff, deg)
+    if record:
+        out = out + (torch.stack(rec, dim=1),)
+    return out
+
+
 _PTR = ctypes.c_void_p
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("thermal_episode").thermal_episode_launch
-    fn.argtypes = [_PTR] * 30 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [_PTR]
+    fn.argtypes = [_PTR] * 31 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
@@ -252,10 +393,12 @@ def thermal_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tens
     outs = [torch.empty((D, B), dtype=torch.float32, device=soc0.device) for _ in range(8)]
     rec = (torch.empty((N_TREC, S, B), dtype=torch.float32, device=soc0.device)
            if record else None)
+    s_pad = -(-S // STAGE_CHUNK) * STAGE_CHUNK
+    stage = torch.empty((B, N_STAGE, s_pad), dtype=torch.float32, device=soc0.device)
     stream = torch.cuda.current_stream(soc0.device).cuda_stream
     err = _launcher()(*[x.data_ptr() for x in inputs + outs],
-                      None if rec is None else rec.data_ptr(),
-                      D, B, S, n_knots, hours_ratio, ratio, stream)
+                      None if rec is None else rec.data_ptr(), stage.data_ptr(),
+                      D, B, S, s_pad, n_knots, hours_ratio, ratio, stream)
     if err != 0:
         raise RuntimeError(f"thermal_episode kernel launch failed: CUDA error {err}")
     thermal_episode.launches += 1

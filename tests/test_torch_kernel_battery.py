@@ -3,7 +3,8 @@ around it: the port's plain version against the JAX package's Pallas
 kernel run in interpret mode; ``run_battery_episode`` and
 ``evaluate_scripted`` against the JAX package's; the dispatch of
 ``evaluate_districts`` to the kernel path; and, on a CUDA card, the
-hand-written kernel against its plain version.
+hand-written kernel against its plain version and the branch-free division
+and square root its district pass runs against IEEE's.
 
 Tolerances. Against JAX: 1e-5 relative to each output's scale. XLA:CPU
 contracts ``a + b * c`` into fused multiply-adds (``energy_init + e *
@@ -12,12 +13,15 @@ differences then accumulate through the SOC recurrence and the
 episode sums. On the card: the kernel is built with ``-fmad=false`` and
 IEEE division and square root, so it rounds every operation as the plain
 PyTorch version does; it is held to 1e-6 relative on the per-step record
-and the state and 1e-5 on the year-long sums, and is expected to be
-bit-equal.
+and the state and 1e-5 on the year-long sums at 512 districts and 5
+knots, and bit-equal at 301 districts and 8 knots.
 
 The card's machine has no JAX: the JAX side is imported inside the tests
 that compare with it, and the ``gpu`` test runs there with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernel_battery.py``."""
+
+import ctypes
+import subprocess
 
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from citylearn_tpu_torch.core.evaluate import evaluate_districts
 from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import batched_initial_states
+from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as k1
 from citylearn_tpu_torch.synthetic import write_battery_pv_dataset
 
@@ -179,11 +184,17 @@ def test_wrapper_rejects_other_devices():
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_matches_reference():
+@pytest.mark.parametrize("D,n_knots", [(512, 5), (301, 8)], ids=["5-knots", "D301-8-knots"])
+def test_cuda_kernel_matches_reference(D, n_knots):
+    """512 districts with 5 knots (the build with the knot count fixed), held
+    to 1e-6 of scale on the record and state and 1e-5 on the sums; 301
+    districts (no block of districts full) with 8 knots (the run-time
+    build), bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
-    D, n_steps = 512, 720
+    n_steps = 720
     actions, series, bparams, curves, state = as_torch(random_inputs(D, n_steps, seed=1), "cuda")
+    curves = [torch.cat([c, c[-1:].expand(n_knots - 5, -1)]).contiguous() for c in curves]
     before = k1.battery_episode.launches
     ours = k1.battery_episode(actions, series, bparams, curves, *state,
                               hours_ratio=1.0, ratio=1.0, record=True)
@@ -192,5 +203,88 @@ def test_cuda_kernel_matches_reference():
     ref = k1.battery_episode_reference(actions, series, bparams, curves, *state,
                                        hours_ratio=1.0, ratio=1.0, record=True)
     for name, a, b in zip(OUTPUTS, ours, ref):
-        assert_close(a, b.cpu(), name, rtol=1e-5 if name in ("reward", "cost", "emission")
-                     else 1e-6)
+        if n_knots == 5:
+            assert_close(a, b.cpu(), name, rtol=1e-5 if name in ("reward", "cost", "emission")
+                         else 1e-6)
+        else:
+            assert torch.equal(a, b), name
+
+
+# div_fast and sqrt_fast (csrc/battery_common.cuh) against `/` and sqrtf:
+# every float for the square root, random operand pairs for the division
+# (uniform exponents in and around the fast range, some zero numerators);
+# counts the results the fast path gives as IEEE's that are not
+FAST_CHECK = r"""
+#include "battery_common.cuh"
+
+__device__ unsigned long long mix(unsigned long long x) {
+    x += 0x9e3779b97f4a7c15ull;
+    x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ull;
+    x = (x ^ (x >> 27)) * 0x94d049bb133111ebull;
+    return x ^ (x >> 31);
+}
+
+__global__ void check(unsigned long long n_pairs, unsigned long long* counts) {
+    unsigned long long bad_sqrt = 0, fast_sqrt = 0, bad_div = 0, fast_div = 0;
+    const unsigned long long stride = gridDim.x * blockDim.x;
+    const unsigned long long start = blockIdx.x * blockDim.x + threadIdx.x;
+    for (unsigned long long i = start; i < (1ull << 32); i += stride) {
+        const float x = __int_as_float(static_cast<int>(i));
+        bool slow = false;
+        const float s = battery::sqrt_fast(x, slow);
+        if (!slow) {
+            ++fast_sqrt;
+            if (__float_as_int(s) != __float_as_int(sqrtf(x))) ++bad_sqrt;
+        }
+    }
+    for (unsigned long long i = start; i < n_pairs; i += stride) {
+        const unsigned long long h = mix(i);
+        // random mantissas and signs, exponents over the fast range and past
+        // its edges: numerators 2^-107..2^107, divisors 2^-37..2^37
+        const int ea = 20 + static_cast<int>((h >> 0) % 215), eb = 90 + static_cast<int>((h >> 8) % 75);
+        const int sa = static_cast<int>((h >> 16) & 1), sb = static_cast<int>((h >> 17) & 1);
+        const int ma = static_cast<int>((h >> 18) & 0x7fffff), mb = static_cast<int>((h >> 41) & 0x7fffff);
+        float a = __int_as_float((sa << 31) | (ea << 23) | ma);
+        const float b = __int_as_float((sb << 31) | (eb << 23) | mb);
+        if ((h >> 64 - 6) == 0) a = sa ? -0.f : 0.f;
+        bool slow = false;
+        const float q = battery::div_fast(a, b, slow);
+        if (!slow) {
+            ++fast_div;
+            if (__float_as_int(q) != __float_as_int(a / b)) ++bad_div;
+        }
+    }
+    atomicAdd(counts + 0, fast_sqrt);
+    atomicAdd(counts + 1, bad_sqrt);
+    atomicAdd(counts + 2, fast_div);
+    atomicAdd(counts + 3, bad_div);
+}
+
+extern "C" int fast_check(unsigned long long n_pairs, unsigned long long* counts, void* stream) {
+    check<<<1056, 256, 0, static_cast<cudaStream_t>(stream)>>>(n_pairs, counts);
+    return static_cast<int>(cudaGetLastError());
+}
+"""
+FAST_PAIRS = 1 << 32
+
+
+@pytest.mark.gpu
+def test_fast_division_and_square_root_are_ieee(tmp_path):
+    """``battery::div_fast`` and ``sqrt_fast``, which K1's and K3's district
+    passes run in place of ``/`` and ``sqrtf``, give IEEE's bits wherever
+    they claim their fast range: every float for the square root, 2^32
+    random operand pairs for the division (``FAST_CHECK``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the check is a CUDA kernel")
+    src = tmp_path / "fast_check.cu"
+    src.write_text(FAST_CHECK)
+    lib = src.with_suffix(".so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).fast_check
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
+    counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+    assert fn(FAST_PAIRS, counts.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    fast_sqrt, bad_sqrt, fast_div, bad_div = (int(c) for c in counts.cpu())
+    assert bad_sqrt == 0 and bad_div == 0, (bad_sqrt, bad_div)
+    assert fast_sqrt > 1 << 30 and fast_div > 1 << 30, (fast_sqrt, fast_div)

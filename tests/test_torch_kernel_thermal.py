@@ -3,8 +3,10 @@ around it: the port's plain version against the JAX package's Pallas
 kernel run in interpret mode; ``run_thermal_episode`` and
 ``evaluate_scripted`` against the JAX package's; the kernel-backed KPI
 table against the stepped one; the dispatch of ``evaluate_districts`` to
-the kernel path; and, on a CUDA card, the hand-written kernel against its
-plain version.
+the kernel path; the kernel's split into a prelude and a district pass,
+in plain PyTorch, against the plain version (bit-equal); the operation
+count; and, on a CUDA card, the hand-written kernel against its plain
+version.
 
 Tolerances. Against JAX: 1e-5 relative to each output's scale. XLA:CPU
 contracts ``a + b * c`` into fused multiply-adds (``energy_init + e *
@@ -15,7 +17,8 @@ SOC recurrences and the episode sums. KPI tables, ratios of such sums:
 built with ``-fmad=false`` and IEEE division and square root, so it
 rounds every operation as the plain PyTorch version does; it is held to
 1e-6 relative on the per-step record and the state and 1e-5 on the
-episode sums, and is expected to be bit-equal.
+episode sums at 512 districts and 5 knots, and bit-equal at 301 districts
+and 8 knots.
 
 The card's machine has no JAX: the JAX side is imported inside the tests
 that compare with it, and the ``gpu`` test runs there with
@@ -31,6 +34,7 @@ from citylearn_tpu_torch.core.evaluate import evaluate_districts
 from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import batched_initial_states
+from citylearn_tpu_torch.ops import battery as k1
 from citylearn_tpu_torch.ops import thermal as k3
 from citylearn_tpu_torch.synthetic import write_thermal_dataset
 
@@ -236,10 +240,54 @@ def test_evaluate_districts_dispatches_fresh_states(district, monkeypatch):
                            fast["building|cost_total"][1].numpy())
 
 
+def test_prelude_and_district_pass_rebuild_the_reference(tmp_path):
+    """The kernel's split, in plain PyTorch: the prelude's rows once per
+    (step, building) and the district pass from them rebuild
+    ``thermal_episode_reference``'s outputs and record bit for bit, on the
+    synthetic district's summer window with per-district seeded states,
+    hourly and at four steps an hour."""
+    path = write_thermal_dataset(str(tmp_path), B, 5000, seed=7)
+    cfg, params, _ = pack(compile_schema(path, episode_time_steps=S + 1,
+                                         simulation_start_time_step=4700,
+                                         simulation_end_time_step=4899), device="cpu")
+    rng = np.random.RandomState(3)
+    # (S, B) tank plans whose signs differ across buildings and steps
+    plans = dict(PLANS, cooling_storage=rng.uniform(-0.3, 0.3, (S, B)).astype(np.float32),
+                 dhw_storage=rng.uniform(-0.3, 0.3, (S, B)).astype(np.float32))
+    inputs = rollout_fast.thermal_episode_inputs(cfg, params, 5, plans)
+    inputs["tparams"][k3.DT_CONV] = inputs["tparams"][k3.DT_CAP]   # both DHW orders
+    rand = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (5, B)).astype(np.float32))
+    inputs.update(csoc0=rand(0.0, 1.0), dsoc0=rand(0.0, 1.0), soc0=rand(0.0, 1.0),
+                  eff0=rand(0.85, 0.95), deg0=(inputs["bparams"][0] * rand(0.9, 1.0)))
+    for hours_ratio, ratio in ((1.0, 1.0), (0.25, 4.0)):
+        inputs.update(hours_ratio=hours_ratio, ratio=ratio)
+        ref = k3.thermal_episode_reference(**inputs, record=True)
+        pre = k3.thermal_prelude_reference(inputs["actions"], inputs["series"],
+                                           inputs["bparams"], inputs["tparams"], hours_ratio,
+                                           ratio)
+        ours = k3.thermal_district_reference(
+            pre, inputs["tparams"], inputs["bparams"], inputs["curves"],
+            *(inputs[k] for k in ("csoc0", "dsoc0", "soc0", "eff0", "deg0")), ratio,
+            record=True)
+        for name, a, b in zip(OUTPUTS, ours, ref):
+            assert torch.equal(a, b), name
+        for row in (k3.R_CBAL, k3.R_DBAL, k3.R_BBAL):
+            assert (ref[8][row] > 0).any() and (ref[8][row] < 0).any(), row
+        assert not torch.equal(ref[1][0], ref[1][1])
+
+
 def test_operation_count_follows_the_plans():
+    """The prelude's work counts once per building-step, the rest once
+    per district and building-step."""
     actions = [torch.tensor(a) for a in random_inputs(1, 24)[0]]
-    base = k3.operation_count(actions, 5, 7)
-    assert base == 7 * k3.operation_count(actions, 5, 1)
+    steps = 24 * B
+    discharging = int((actions[0] < 0).sum() + (actions[1] < 0).sum())
+    per_district = (k1.operation_count(actions[2], 5, 1) - 2 * steps
+                    + steps * (14 + 2 * 12) + 9 * discharging)
+    prelude = steps * (14 + 4 + 3 + 2 * 18) - 7 * discharging + 2 * steps
+    assert k3.operation_count(actions, 5, 7) - k3.operation_count(actions, 5, 1) \
+        == 6 * per_district
+    assert k3.operation_count(actions, 5, 1) == per_district + prelude
     discharging = [torch.full_like(a, -1.0) for a in actions[:2]] + [actions[2]]
     idle = [torch.zeros_like(a) for a in actions[:2]] + [actions[2]]
     assert k3.operation_count(discharging, 5, 1) - k3.operation_count(idle, 5, 1) \
@@ -253,15 +301,26 @@ def test_wrapper_rejects_other_devices():
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_matches_reference():
+@pytest.mark.parametrize("D,n_knots", [(512, 5), (301, 8)], ids=["5-knots", "D301-8-knots"])
+def test_cuda_kernel_matches_reference(D, n_knots):
+    """512 districts with 5 knots (the build with the knot count fixed), held
+    to 1e-6 of scale on the record and state and 1e-5 on the sums; 301
+    districts (no block of districts full) with 8 knots (the run-time
+    build), bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
-    D, n_steps = 512, 720
-    inputs = as_torch(random_inputs(D, n_steps, seed=1), "cuda")
+    n_steps = 720
+    actions, series, bparams, curves, tparams, *state = as_torch(
+        random_inputs(D, n_steps, seed=1), "cuda")
+    curves = [torch.cat([c, c[-1:].expand(n_knots - 5, -1)]).contiguous() for c in curves]
+    inputs = (actions, series, bparams, curves, tparams, *state)
     before = k3.thermal_episode.launches
     ours = k3.thermal_episode(*inputs, hours_ratio=1.0, ratio=1.0, record=True)
     torch.cuda.synchronize()
     assert k3.thermal_episode.launches == before + 1
     ref = k3.thermal_episode_reference(*inputs, hours_ratio=1.0, ratio=1.0, record=True)
     for name, a, b in zip(OUTPUTS, ours, ref):
-        assert_close(a, b.cpu(), name, rtol=1e-5 if name in SUMS else 1e-6)
+        if n_knots == 5:
+            assert_close(a, b.cpu(), name, rtol=1e-5 if name in SUMS else 1e-6)
+        else:
+            assert torch.equal(a, b), name
