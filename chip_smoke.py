@@ -25,16 +25,22 @@ Phases, each of which raises on failure:
      that takes the energy request in every district), its chain floor, its
      registers and spills;
   7. kernel vs plain: K2 (``battery_collect_chunk``) against its plain
-     PyTorch version at D=4096 districts x K=64 steps, with and without the
-     first-step accounting, and its times;
+     PyTorch version at D=4096 districts x K=64 steps from per-district
+     seeded streams and states, with and without the first-step accounting,
+     all 4 outputs bit-equal, again from SOCs of 1e-35 (the per-lane IEEE
+     redo), with 8 knots (the run-time build) and at four steps an hour;
+     its device time from a CUDA graph of launches, its time through the
+     wrapper, its bound, its chain floor, its registers and spills;
   8. the training path, ``BatchedSAC`` at the JAX package's ``sac_train_step``
      settings (D=4096, hidden 256x256, batch 256, 64-step chunks):
      (a) the per-step and the kernel collect agree over 64 warmup steps;
      (b) the main path, with the launch counts reset just before and read
      just after: 80 training steps on the kernel path, whose updates must
      move the policy; (c) the train step's rate over 3 more 64-step chunks,
-     split into collect and updates; (d) ``evaluate`` of the trained policy
-     over 168 steps, and of a scripted baseline through K1;
+     split into collect and updates, and K2 bit-equal and timed on the
+     inputs that the trainer hands it in one more chunk; (d) ``evaluate``
+     of the trained policy over 168 steps, and of a scripted baseline
+     through K1;
   9. write a seeded 9-building, 8760-row thermal-storage dataset (cooling
      and DHW devices and tanks, battery, PV: the shape of
      ``citylearn_challenge_2021``), compile it and pack it on the card;
@@ -185,6 +191,7 @@ from citylearn_tpu_torch.synthetic import (
     write_neighborhood_dataset,
     write_thermal_dataset,
 )
+from citylearn_tpu_torch import train as train_module
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 
 DEVICE = "cuda"
@@ -207,7 +214,7 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 # the least cycles one LSTM cell of P6's dependent chain takes: a tree of
 # multiply-adds, two activations, the exchange of the hidden vector
 CELL_CYCLES = 100
-# Hopper latencies, in cycles, of K1's and K3's chain floor (chain_cycles):
+# Hopper latencies, in cycles, of K1's, K2's and K3's chain floor (chain_cycles):
 # a shared-memory load, a MUFU estimate, a move to or from a uniform
 # register; 4 for every other FP32 or integer operation
 SASS_LATENCY = {"LDS": 30, "MUFU": 18, "S2UR": 10, "R2UR": 10}
@@ -327,22 +334,23 @@ def sass_function(text, part):
     return out
 
 
-def chain_cycles(name):
-    """The least cycles one step of the district pass of ``csrc/<name>.cu``
-    (K1 or K3) takes: the longest dependent chain through the step loop in
-    the SASS of this checkout's 5-knot build (``cuobjdump -sass``), at
-    ``SASS_LATENCY``. The loop is the longest innermost one, read without
-    the region its fast path skips (the IEEE redo, which holds the calls),
-    each side of every if/else in turn, and divided by the steps a trip
-    runs (the source's ``#pragma unroll`` of the step loop). Returns
+def chain_cycles(name, kernel="district_kernel"):
+    """The least cycles one step of the step loop of ``csrc/<name>.cu`` (the
+    district pass ``district_kernel`` of K1 or K3, or K2's
+    ``collect_kernel``) takes: the longest dependent chain through the step
+    loop in the SASS of this checkout's 5-knot build (``cuobjdump -sass``),
+    at ``SASS_LATENCY``. The loop is the longest innermost one, read without
+    the regions its fast path skips (each step's IEEE redo, which holds the
+    calls), each side of every if/else in turn, and divided by the steps a
+    trip runs (the source's ``#pragma unroll`` of the step loop). Returns
     (cycles a step, {opcode: count} along the longest chain)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
-    unroll = re.search(r"#pragma unroll (\d+)\n\s*for \(int k = 0; k < n; \+\+k\)",
+    unroll = re.search(r"#pragma unroll (\d+)\n\s*for \(int k = 0; k < [\w.]+; \+\+k\)",
                        (_build.CSRC / f"{name}.cu").read_text())
     steps_per_trip = int(unroll.group(1)) if unroll else 1
-    code = sass_function(text, "district_kernelILi5E")
+    code = sass_function(text, f"{kernel}ILi5E")
     branch = lambda ins: re.match(r"(@!?U?P\d+ )?BRA (0x[0-9a-f]+)", ins)
     loops = [(int(branch(i).group(2), 16), a) for a, i in code
              if branch(i) and int(branch(i).group(2), 16) < a]
@@ -353,8 +361,9 @@ def chain_cycles(name):
                if branch(i) and int(branch(i).group(2), 16) > a]
     skipped = [(a, t) for a, t, cond in forward if cond
                and any("CALL" in i for b, i in body if a < b < t)]
-    redo = max(skipped, key=lambda r: r[1] - r[0])
-    body = [(a, i) for a, i in body if not redo[0] < a < redo[1]]
+    redo = [r for r in skipped if not any(o != r and o[0] <= r[0] and r[1] <= o[1]
+                                          for o in skipped)]
+    body = [(a, i) for a, i in body if not any(lo < a < hi for lo, hi in redo)]
     addresses = [a for a, _ in body]
     diamonds = []          # (then, else) address ranges of an if/else
     for a, t, cond in forward:
@@ -427,6 +436,27 @@ def time_cuda(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def time_graph(fn, n, replays=3):
+    """Device milliseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph, replayed ``replays`` times after one warm-up, so that the
+    host's time to launch does not count."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
 
 
 def timed_once(fn):
@@ -1507,33 +1537,50 @@ def main(json_path=None):
     cap = params.battery.capacity
     chunk_state = (rand(0.0, 1.0, (D, N_BUILDINGS)), rand(0.85, 0.95, (D, N_BUILDINGS)),
                    (cap * rand(0.9, 1.0, (D, N_BUILDINGS))).contiguous())
+    # every seventh SOC at 1e-35, below the fast division's range: those
+    # lanes redo their first step with IEEE operations
+    tiny_soc = chunk_state[0].clone()
+    tiny_soc.view(-1)[::7] = 1e-35
+    n_knots = prep.curves[0].shape[0]
+    cases = {"seeded": (prep, chunk_state),
+             "tiny-soc": (prep, (tiny_soc, *chunk_state[1:])),
+             "8-knots": (prep._replace(curves=tuple(
+                 torch.cat([c, c[-1:].expand(8 - n_knots, -1)]).contiguous()
+                 for c in prep.curves)), chunk_state),
+             "subhour": (prep._replace(hours_ratio=0.25, ratio=4.0), chunk_state)}
     k2_max_abs = 0.0
-    for first in (True, False):
-        ours = k2.battery_collect_chunk(prep, *streams, *chunk_state, first_chunk=first)
-        torch.cuda.synchronize()
-        ref = k2.battery_collect_chunk_reference(prep, *streams, *chunk_state,
-                                                 first_chunk=first)
-        for name, a, b in zip(COLLECT_OUTPUTS, ours, ref):
-            diff, rel = scaled_error(a, b)
-            k2_max_abs = max(k2_max_abs, diff)
-            print(f"first_chunk={first!s:5} {name:6s} max|diff| {diff:.3e}  scaled {rel:.3e}  "
-                  f"(tolerance {TOL_STEP:g})")
-            if not rel <= TOL_STEP:
-                raise AssertionError(f"K2 {name} disagrees with its plain version: {rel}")
-    k2_ms = time_cuda(lambda: k2.battery_collect_chunk(prep, *streams, *chunk_state,
-                                                       first_chunk=False), 50)
+    for label, (case_prep, case_state) in cases.items():
+        for first in (True, False):
+            print(f"{label}, first_chunk={first}:")
+            ours = k2.battery_collect_chunk(case_prep, *streams, *case_state, first_chunk=first)
+            ref = k2.battery_collect_chunk_reference(case_prep, *streams, *case_state,
+                                                     first_chunk=first)
+            k2_max_abs = max(k2_max_abs, check_bit_equal(
+                f"K2 ({label}, first_chunk={first})", COLLECT_OUTPUTS, ours, ref))
+    print(f"4 outputs bit-equal in {2 * len(cases)} runs from per-district seeded states")
+    collect = lambda: k2.battery_collect_chunk(prep, *streams, *chunk_state, first_chunk=False)
+    k2_ms = time_graph(collect, 100)
+    k2_eager_ms = time_cuda(collect, 100)
     k2_plain_ms = time_cuda(lambda: k2.battery_collect_chunk_reference(
         prep, *streams, *chunk_state, first_chunk=False), 3)
-    n_knots = prep.curves[0].shape[0]
     k2_bytes = 4 * (4 * K_CHUNK * D * B + 6 * D * B + 8 * B + 4 * n_knots * B)
     k2_ops = k2.collect_operation_count(prep, streams[0])
     k2_bytes_ms, k2_ops_ms = k2_bytes / PEAK_BYTES * 1e3, k2_ops / PEAK_FP32 * 1e3
     k2_bound_ms = max(k2_bytes_ms, k2_ops_ms)
-    print(f"K2 {k2_ms:.4f} ms/launch ({D * K_CHUNK / k2_ms * 1e3:.4g} district-steps/s); "
-          f"plain {k2_plain_ms:.3f} ms; bound {k2_bound_ms:.5f} ms ({k2_ops:.4g} fp32 ops -> "
-          f"{k2_ops_ms:.5f} ms, {k2_bytes} bytes -> {k2_bytes_ms:.5f} ms)")
-    results.update(k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound_ms=k2_bound_ms,
-                   k2_bound_ops=k2_ops, k2_bound_bytes=k2_bytes, k2_max_abs_err=k2_max_abs)
+    k2_cycles, k2_chain = chain_cycles("battery_collect", "collect_kernel")
+    k2_chain_ms, clock_mhz = chain_floor_ms(k2_cycles, K_CHUNK)
+    print(f"K2 {k2_ms:.5f} ms/launch on the device (a CUDA graph of 100 launches; "
+          f"{D * K_CHUNK / k2_ms * 1e3:.4g} district-steps/s), {k2_eager_ms:.5f} ms a call "
+          f"back to back through the wrapper; plain {k2_plain_ms:.3f} ms; bound "
+          f"{k2_bound_ms:.5f} ms ({k2_ops:.4g} fp32 ops -> {k2_ops_ms:.5f} ms, {k2_bytes} bytes "
+          f"-> {k2_bytes_ms:.5f} ms), share of bound {k2_bound_ms / k2_ms:.2%}; chain floor "
+          f"{k2_chain_ms:.5f} ms ({K_CHUNK} steps x {k2_cycles:g} cycles at {clock_mhz:.0f} MHz, "
+          f"read from this build's SASS along {k2_chain}), {k2_ms / k2_chain_ms:.2f}x of it; "
+          f"build: {ptxas_report(results, 'battery_collect')}")
+    results.update(k2_ms=k2_ms, k2_eager_ms=k2_eager_ms, k2_plain_ms=k2_plain_ms,
+                   k2_bound_ms=k2_bound_ms, k2_bound_ops=k2_ops, k2_bound_bytes=k2_bytes,
+                   k2_max_abs_err=k2_max_abs, k2_chain_floor_ms=k2_chain_ms,
+                   k2_chain_cycles=k2_cycles)
 
     phase(f"8. training at D={D}, hidden {TRAIN['hidden']}, {K_CHUNK}-step chunks")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1593,6 +1640,36 @@ def main(json_path=None):
     print(f"(c) train step: {chunk_ms:.2f} ms per {K_CHUNK}-step chunk = {train_rate:.4g} "
           f"district-steps/s; collect (policy sweep, K2, replay writes) {collect_ms:.2f} ms, "
           f"{K_CHUNK} updates {update_ms:.2f} ms")
+    # K2 on the main path's own inputs: the streams and state that the
+    # trainer hands it in one more chunk after warmup (policy actions)
+    handed = {}
+    shipped = train_module.battery_collect_chunk
+
+    def keep(*args, **kw):
+        handed.update(args=[a.clone() if torch.is_tensor(a) else a for a in args], kw=kw)
+        return shipped(*args, **kw)
+
+    train_module.battery_collect_chunk = keep
+    try:
+        tr.train(K_CHUNK, chunk=K_CHUNK)
+    finally:
+        train_module.battery_collect_chunk = shipped
+    main_args, main_kw = handed["args"], handed["kw"]
+    actions = main_args[1]
+    if tuple(actions.shape) != (K_CHUNK, D, N_BUILDINGS):
+        raise AssertionError(f"the trainer handed K2 streams of {tuple(actions.shape)}")
+    check_bit_equal("K2 (the main path's inputs)", COLLECT_OUTPUTS,
+                    k2.battery_collect_chunk(*main_args, **main_kw),
+                    k2.battery_collect_chunk_reference(*main_args, **main_kw))
+    k2_main_ms = time_graph(lambda: k2.battery_collect_chunk(*main_args, **main_kw), 100)
+    warps = actions.reshape(K_CHUNK, -1)[:, :D * N_BUILDINGS // 32 * 32].reshape(K_CHUNK, -1, 32)
+    mixed = float(((warps >= 0).any(-1) & (warps < 0).any(-1)).float().mean())
+    charging = float((actions >= 0).float().mean())
+    print(f"K2 on the main path's inputs (policy actions, {charging:.1%} charging; "
+          f"{mixed:.1%} of warp-steps mixed in sign): {k2_main_ms:.5f} ms/launch on "
+          f"the device, bit-equal to its plain version; {k2_main_ms / collect_ms:.2%} of the "
+          f"collect")
+    results.update(k2_main_inputs_ms=k2_main_ms, k2_main_mixed_warp_steps=mixed)
     # where a chunk's time goes: one more chunk under the profiler (which
     # slows the host side); device busy time against the wall clock
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,

@@ -52,15 +52,16 @@ def wrapper(module, name: str, lib: ctypes.CDLL):
     shipped = inspect.getsource(module._launcher)
     argtypes = eval(re.search(r"fn\.argtypes = (.*?)\n\s*fn\.restype", shipped, re.S).group(1),
                     vars(module))
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, re.search(r"\.(\w+_launch)\b", shipped).group(1))
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     src = textwrap.dedent(inspect.getsource(getattr(module, name)))
     for old, new in (('.device.type == "cpu"', '.device.type == "emulated"'),
                      ('.device.type != "cuda"', '.device.type == "emulated"'),
-                     ("torch.cuda.current_stream(soc0.device).cuda_stream", "None"),
                      ("_launcher()", "_emulated_launcher")):
         assert old in src, old
         src = src.replace(old, new)
+    src, n = re.subn(r"torch\.cuda\.current_stream\(\w+\.device\)\.cuda_stream", "None", src)
+    assert n == 1, "the wrapper names no stream"
     namespace = dict(vars(module), _emulated_launcher=fn)
     exec(compile(src, f"<emulated {name}>", "exec"), namespace)
     emulated = namespace[name]

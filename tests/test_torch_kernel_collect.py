@@ -1,15 +1,17 @@
 """Kernel K2, the chunked closed-loop battery collect: the port's plain
 version against the JAX package's Pallas kernel run in interpret mode,
-its packing against ``prepare_battery_collect``'s, and, on a CUDA card,
-the hand-written kernel against its plain version.
+hourly and at four steps an hour, its packing against
+``prepare_battery_collect``'s, and, on a CUDA card, the hand-written
+kernel against its plain version.
 
 Tolerances. Against JAX: 1e-5 relative to each output's scale. XLA:CPU
 contracts ``a + b * c`` into fused multiply-adds (``energy_init + e *
 rt``) where the port rounds twice; the last-bit differences accumulate
 through the K-step SOC recurrence. On the card: the kernel is built with
 ``-fmad=false`` and IEEE division and square root, so it rounds every
-operation as the plain version does; it is held to 1e-6 relative and is
-expected to be bit-equal.
+operation as the plain version does, and its branch-free division and
+square root give IEEE's bits or send the step to the IEEE redo: it is held
+bit-equal.
 
 The card's machine has no JAX: the JAX side is imported inside the tests
 that compare with it, and the ``gpu`` test runs there with
@@ -97,6 +99,32 @@ def test_reference_matches_jax_interpret(dataset, D, first_chunk):
     assert not torch.equal(ours[1][0], ours[1][1])
 
 
+@pytest.mark.parametrize("first_chunk", [True, False])
+def test_reference_matches_jax_interpret_subhourly(tmp_path, first_chunk):
+    """Rows of 15 minutes read at a time-step ratio of 4 (the hours ratio
+    stays 1): the degradation's ``* ratio`` runs with a ratio other than 1."""
+    import jax.numpy as jnp
+
+    from citylearn_tpu.compiler.schema import compile_schema as jax_compile
+    from citylearn_tpu.core.params import pack as jax_pack
+    from citylearn_tpu.ops.pallas_collect import battery_collect_chunk, prepare_battery_collect
+
+    path = write_battery_pv_dataset(str(tmp_path), B, 200, seed=3, minutes=True)
+    jcfg, jparams, _ = jax_pack(jax_compile(path))
+    prep = torch_prep(path)
+    assert (prep.hours_ratio, prep.ratio) == (1.0, 4.0)
+    D = 128
+    streams, state = random_streams(prep, D, K, seed=11 + first_chunk)
+    ours = k2.battery_collect_chunk(prep, *[torch.tensor(x) for x in streams + state],
+                                    first_chunk=first_chunk)
+    ref = battery_collect_chunk(prepare_battery_collect(jcfg, jparams),
+                                *[jnp.asarray(x) for x in streams + state],
+                                first_chunk=first_chunk, interpret=True)
+    for name, a, b in zip(OUTPUTS, ours, ref):
+        assert_close(a, b, name)
+    assert not torch.equal(ours[3], torch.tensor(state[2]))
+
+
 def test_first_chunk_counts_the_first_step_again(dataset):
     """t == 0 triple-counts the load and double-counts the battery: the
     first reward differs between the two modes, the rest do not."""
@@ -120,13 +148,21 @@ def test_wrapper_rejects_other_devices(dataset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D,n_knots", [(512, 5), (301, 8)], ids=["5-knots", "D301-8-knots"])
 @pytest.mark.parametrize("first_chunk", [True, False])
-def test_cuda_kernel_matches_reference(dataset, first_chunk):
+def test_cuda_kernel_matches_reference(dataset, first_chunk, D, n_knots):
+    """512 districts with the dataset's 5 knots (the build with the knot
+    count fixed); 301 (no block of pairs full) with the curves padded to 8
+    knots by their last (the run-time build); per-district seeded streams
+    and states; bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     cfg, params, _ = pack(compile_schema(dataset), device="cuda")
     prep = k2.prepare_battery_collect(cfg, params)
-    streams, state = random_streams(prep, 512, 64, seed=7)
+    assert prep.curves[0].shape[0] == 5
+    prep = prep._replace(curves=tuple(torch.cat([c, c[-1:].expand(n_knots - 5, -1)])
+                                      .contiguous() for c in prep.curves))
+    streams, state = random_streams(prep, D, 64, seed=7)
     args = [torch.tensor(x, device="cuda") for x in streams + state]
     before = k2.battery_collect_chunk.launches
     ours = k2.battery_collect_chunk(prep, *args, first_chunk=first_chunk)
@@ -134,4 +170,4 @@ def test_cuda_kernel_matches_reference(dataset, first_chunk):
     assert k2.battery_collect_chunk.launches == before + 1
     ref = k2.battery_collect_chunk_reference(prep, *args, first_chunk=first_chunk)
     for name, a, b in zip(OUTPUTS, ours, ref):
-        assert_close(a, b, name, rtol=1e-6)
+        assert torch.equal(a, b), name

@@ -1,6 +1,7 @@
-"""The kernel sources of K1 (``csrc/battery_episode.cu``), K3
-(``csrc/thermal_episode.cu``), K4 (``csrc/ev_episode.cu``) and K6
-(``csrc/neighborhood_episode.cu``) themselves, compiled with ``g++`` and run
+"""The kernel sources of K1 (``csrc/battery_episode.cu``), K2
+(``csrc/battery_collect.cu``), K3 (``csrc/thermal_episode.cu``), K4
+(``csrc/ev_episode.cu``) and K6 (``csrc/neighborhood_episode.cu``)
+themselves, compiled with ``g++`` and run
 on the CPU by the thread-per-lane emulation of ``tests/_cuda_emulation.py``,
 through their wrappers' CUDA branch, against their plain PyTorch versions:
 every output and recorded row bit-equal. The shapes take the kernels'
@@ -12,12 +13,17 @@ from step to step, so that every block takes both branches of the battery
 event and of both end uses, at 5 knots (the build with the knot count
 fixed) and 8 (the run-time build), hourly and at four steps an hour, and
 from SOCs of 1e-35, outside the range of their branch-free division, so
-that a step is redone with IEEE operations. The host build of that
+that a step is redone with IEEE operations. K2's actions are per district
+and uniform in [-1, 1], so the lanes of a warp charge and discharge in the
+same step, over 64 steps and a ragged 37 (its staging ring of 4 steps
+neither full nor aligned), with and without the first step's accounting,
+in the same four cases. The host build of that
 division refines a correctly rounded reciprocal where the card refines its
 MUFU estimate; the card's sequence is held against ``/`` and ``sqrtf`` by
 ``test_torch_kernel_battery.py::test_fast_division_and_square_root_are_ieee``.
 The card's run of the same sources is the ``gpu`` tests of
-``test_torch_kernel_battery.py``, ``test_torch_kernel_thermal.py``,
+``test_torch_kernel_battery.py``, ``test_torch_kernel_collect.py``,
+``test_torch_kernel_thermal.py``,
 ``test_torch_kernel_ev.py`` and ``test_torch_kernel_neighborhood.py``.
 
 Tolerance: none. The emulation rounds every float operation as the card
@@ -38,6 +44,7 @@ from citylearn_tpu_torch.compiler.schema import compile_schema
 from citylearn_tpu_torch.core import rollout_fast
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.ops import battery as k1
+from citylearn_tpu_torch.ops import collect as k2
 from citylearn_tpu_torch.ops import ev as k4
 from citylearn_tpu_torch.ops import neighborhood as k6
 from citylearn_tpu_torch.ops import thermal as k3
@@ -59,6 +66,12 @@ def k6_emulated(tmp_path_factory):
 def k1_emulated(tmp_path_factory):
     lib = emulation.build("battery_episode", tmp_path_factory.mktemp("k1"))
     return emulation.wrapper(k1, "battery_episode", lib)
+
+
+@pytest.fixture(scope="module")
+def k2_emulated(tmp_path_factory):
+    lib = emulation.build("battery_collect", tmp_path_factory.mktemp("k2"))
+    return emulation.wrapper(k2, "battery_collect_chunk", lib)
 
 
 @pytest.fixture(scope="module")
@@ -215,3 +228,43 @@ def test_k3_source_matches_plain_version(k3_emulated, monkeypatch, n_knots, hour
     for row in (k3.R_CBAL, k3.R_DBAL, k3.R_BBAL):
         assert (ref[8][row] > 0).any() and (ref[8][row] < 0).any(), row
     assert not torch.equal(ref[5][0], ref[5][-1])
+
+
+@K13_CASES
+@pytest.mark.parametrize("n_steps", [64, 37], ids=["K64", "K37"])
+@pytest.mark.parametrize("first_chunk", [True, False], ids=["first", "later"])
+def test_k2_source_matches_plain_version(k2_emulated, monkeypatch, n_knots, hours_ratio, ratio,
+                                         tiny, n_steps, first_chunk):
+    emulation.ieee_sqrt(monkeypatch)
+    D = K13_DISTRICTS
+    _, _, bparams, curves, state = battery_case.as_torch(
+        battery_case.random_inputs(D, 1, seed=4), "cpu")
+    if tiny:
+        tiny_socs(state[0])
+    prep = k2.CollectPrep(bparams=bparams, curves=tuple(with_knots(curves, n_knots)),
+                          hours_ratio=hours_ratio, ratio=ratio)
+    rng = np.random.RandomState(n_steps)
+    f = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (n_steps, D, battery_case.B))
+                                    .astype(np.float32))
+    streams = f(-1.0, 1.0), f(0.2, 3.0), f(0.0, 3.0)
+    kw = dict(first_chunk=first_chunk)
+    ref = k2.battery_collect_chunk_reference(prep, *streams, *state, **kw)
+    before = k2_emulated.launches
+    ours = k2_emulated(prep, *streams, *state, **kw)
+    assert k2_emulated.launches == before + 1
+    for name, a, b in zip(("reward", "soc", "eff", "deg"), ours, ref):
+        assert torch.equal(a, b), name
+    # the lanes of a warp (32 consecutive pairs d * B + b) charge and
+    # discharge in one step, and the events' balances take both signs
+    warps = streams[0].reshape(n_steps, -1)[:, :D * battery_case.B // 32 * 32]
+    warps = warps.reshape(n_steps, -1, 32)
+    assert ((warps >= 0).any(-1) & (warps < 0).any(-1)).any()
+    soc, eff, deg = state
+    balances = []
+    for action in streams[0]:
+        soc, eff, deg, balance = k1.battery_event(prep.bparams, prep.curves, soc, eff, deg,
+                                                  action, hours_ratio, ratio)
+        balances.append(balance)
+    balances = torch.stack(balances)
+    assert (balances > 0).any() and (balances < 0).any()
+    assert torch.equal(soc, ref[1])
