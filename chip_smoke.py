@@ -3,7 +3,7 @@
 battery+PV district's evaluation (kernel K1) and training (K2), the
 thermal-storage district's evaluation (K3), the EV district's (K4), the
 LSTM-dynamics district's (K5) and the neighborhood districts' (K6 and the
-post-pass P6).
+post-pass P6), then training on every family and batched MARLISA.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -139,6 +139,22 @@ Phases, each of which raises on failure:
      over 10 launches, its bound and its chain floor, the full-year
      ``evaluate_scripted`` over 5.
 
+ 26. training on the families: ``BatchedSAC`` at phase 8's settings
+     (hidden 256x256, batch 256, 720-step episodes) on the thermal, EV
+     and LSTM districts at D=4096 and the EULP and quebec districts at
+     D=128, each on the per-step collect (K2 serves battery+PV only): 8
+     warmup and 24 policy steps whose updates must move the policy with
+     finite and non-zero rewards (on the EV district past step 16, before
+     which no EV docks), the train step's ms and district-steps/s split
+     into collect and updates, ``evaluate`` of the learned policy over 168
+     steps, and of the family's scripted plan, which must launch the
+     family's kernel (K3, K4, K5, K6 and P6);
+ 27. ``BatchedMARLISA`` on the battery+PV district at D=4096 with phase 8's
+     settings and a ridge refit every 8 steps: 32 steps after which the
+     ridge weights and the coordination variables are non-zero and each
+     agent's capacity variable is the dispatched share before it, its ms
+     per step, and ``evaluate`` with the live ring over 168 steps.
+
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
 writes every number measured to PATH. Without a CUDA card it exits 1.
@@ -193,6 +209,7 @@ from citylearn_tpu_torch.synthetic import (
 )
 from citylearn_tpu_torch import train as train_module
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
+from citylearn_tpu_torch.train_marlisa import BatchedMARLISA
 
 DEVICE = "cuda"
 D = 4096                      # districts per batch
@@ -254,6 +271,14 @@ COMFORT_STEPS = 2
 TRAIN = dict(n_districts=D, hidden=(256, 256), batch_size=256,
              replay_capacity=D * 64, collect_chunk=K_CHUNK)
 TRAIN_EPISODE = 720
+# phase 26: BatchedSAC on the other families, each on its per-step path;
+# the neighborhood districts at D=128, where a stepped step costs 46-63 ms
+# at D=8 already (host-bound: the step's launches, not D, set its time)
+FAMILY_D = {"thermal": D, "ev": D, "lstm": D, "eulp": 128, "quebec": 128}
+FAMILY_WARMUP, FAMILY_STEPS = 8, 24   # warmup steps, then policy steps with updates
+FAMILY_CHUNK = 8                      # steps of each timed chunk
+EV_REWARD_FROM = 16                   # the synthetic EV district docks no EV before this step
+MARLISA_EVERY = 8                     # phase 27's regression_update_every
 TOL_PATHS = 2e-5              # per-step vs kernel collect: replay rows and state
 # KPIs that are NaN by the reference's semantics on data with no occupants
 # and no outage (a proportion of zero occupied or zero outage steps)
@@ -1406,6 +1431,143 @@ def neighborhood_path(dev, results):
         "library_ms": None}]
 
 
+def train_rates(tr, results, key):
+    """Time FAMILY_CHUNK-step chunks of ``tr`` with and without their SAC
+    updates; records and returns (ms per step, collect ms per step,
+    district-steps/s)."""
+    n = tr.cfg.n_districts
+    chunk_ms = time_cuda(lambda: tr.train(FAMILY_CHUNK, chunk=FAMILY_CHUNK), 2)
+    tr._update = lambda t, n_slots: None       # the same chunks without their updates
+    collect_ms = time_cuda(lambda: tr.train(FAMILY_CHUNK, chunk=FAMILY_CHUNK), 2)
+    del tr._update
+    step_ms, collect_step_ms = chunk_ms / FAMILY_CHUNK, collect_ms / FAMILY_CHUNK
+    rate = n * FAMILY_CHUNK / chunk_ms * 1e3
+    results.update({f"{key}_train_step_ms": step_ms, f"{key}_collect_step_ms": collect_step_ms,
+                    f"{key}_update_step_ms": step_ms - collect_step_ms,
+                    f"{key}_train_district_steps_per_s": rate})
+    return step_ms, collect_step_ms, rate
+
+
+def check_trained(tr, w0, hist, label, reward_from=0):
+    """The policy head moved, every reward is finite and some reward row
+    from step ``reward_from`` on is non-zero."""
+    moved = float((tr.base_state.nets.policy.mean_w.detach() - w0).abs().max())
+    rew = tr.base_state.replay_rew[:FAMILY_WARMUP + FAMILY_STEPS]
+    if not moved > 0:
+        raise AssertionError(f"{label}: no SAC update changed the policy")
+    if not (all(torch.isfinite(torch.tensor(hist))) and torch.isfinite(rew).all()):
+        raise AssertionError(f"{label}: non-finite rewards")
+    if not float(rew[reward_from:].abs().max()) > 0:
+        raise AssertionError(f"{label}: every reward from step {reward_from} on is zero")
+    return moved
+
+
+def family_training(dev, results):
+    """Phase 26: ``BatchedSAC`` on the thermal, EV, LSTM and neighborhood
+    districts, each on the per-step collect."""
+    phase("26. training on the families")
+    t_phase = time.perf_counter()
+    B_ev, C, V, W = EV_SHAPE
+    families = (
+        ("thermal", lambda tmp: write_thermal_dataset(tmp, THERMAL_BUILDINGS, N_ROWS, SEED),
+         thermal_rbc_tables()),
+        ("ev", lambda tmp: write_ev_dataset(tmp, B_ev, C, V, W, N_ROWS, SEED), ev_plans(C)),
+        ("lstm", lambda tmp: write_lstm_dataset(tmp, n_rows=N_ROWS, seed=SEED), lstm_plans()),
+        ("eulp", lambda tmp: write_neighborhood_dataset(tmp, EULP_BUILDINGS, N_ROWS, SEED),
+         neighborhood_plans()),
+        ("quebec", lambda tmp: write_neighborhood_dataset(tmp, QUEBEC_BUILDINGS, N_ROWS, SEED,
+                                                          quebec=True),
+         neighborhood_plans()))
+    kernels_of = {"thermal": (k3.thermal_episode,), "ev": (k4.ev_episode,),
+                  "lstm": (k5.lstm_episode,),
+                  "neighborhood": (k6.neighborhood_episode, p6.postpass_kernel)}
+    for name, write, plans in families:
+        t0 = time.perf_counter()
+        n = FAMILY_D[name]
+        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+            warnings.simplefilter("ignore")           # the quebec trees are absent
+            tr = BatchedSAC(write(tmp), TrainConfig(
+                warmup_steps=FAMILY_WARMUP, **dict(TRAIN, n_districts=n, replay_capacity=n * 64)),
+                random_seed=SEED, episode_time_steps=TRAIN_EPISODE, device=dev)
+        set_up_s = time.perf_counter() - t0
+        if tr.use_kernel_collect:
+            raise AssertionError(f"{name}: the trainer took the kernel collect")
+        B = tr.env_cfg.n_buildings
+        family_kernels = kernels_of[kernel_family(tr.env_cfg)]
+        w0 = tr.base_state.nets.policy.mean_w.detach().clone()
+        k2.battery_collect_chunk.launches = 0
+        hist = tr.train(FAMILY_WARMUP + FAMILY_STEPS, chunk=FAMILY_WARMUP + FAMILY_STEPS)
+        torch.cuda.synchronize()
+        if k2.battery_collect_chunk.launches:
+            raise AssertionError(f"{name}: the per-step path launched K2")
+        moved = check_trained(tr, w0, hist, name, EV_REWARD_FROM if name == "ev" else 0)
+        step_ms, collect_ms, rate = train_rates(tr, results, name)
+        t0 = time.perf_counter()
+        learned = tr.evaluate(n_steps=SHORT_STEPS)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        check_table(learned, (n,), f"{name} BatchedSAC.evaluate", B)
+        for kernel in family_kernels:
+            kernel.launches = 0
+        baseline = tr.evaluate(policy=ScriptedPolicy(plans))
+        torch.cuda.synchronize()
+        launched = {kernel.__name__: kernel.launches for kernel in family_kernels}
+        if not all(launched.values()):
+            raise AssertionError(f"{name}: evaluate(policy=ScriptedPolicy) launched {launched}")
+        check_table(baseline, (n,), f"{name} BatchedSAC.evaluate(ScriptedPolicy)", B)
+        results.update({f"{name}_train_evaluate_168_s": eval_s,
+                        f"{name}_train_set_up_s": set_up_s})
+        print(f"{name}: D={n}, B={B}, obs {tr.obs_dim}, act {tr.act_dim}; set-up "
+              f"{set_up_s:.1f} s; "
+              f"{FAMILY_WARMUP}+{FAMILY_STEPS} steps on the per-step path, policy head moved "
+              f"by {moved:.3e}, mean reward per step {hist[0]:.4f}; train step {step_ms:.2f} ms "
+              f"(collect {collect_ms:.2f}, update {step_ms - collect_ms:.2f}) = {rate:.4g} "
+              f"district-steps/s; evaluate at S={SHORT_STEPS} {eval_s:.2f} s, cost_total "
+              f"{float(learned['district|cost_total'].mean()):.6f}; scripted plan through "
+              f"{launched}, cost_total {float(baseline['district|cost_total'][0]):.6f}")
+        del tr
+    results["family_training_s"] = time.perf_counter() - t_phase
+    print(f"phase 26: {results['family_training_s']:.1f} s; {nvidia_smi()}")
+
+
+def marlisa_training(dev, results):
+    """Phase 27: ``BatchedMARLISA`` on the battery+PV district."""
+    phase(f"27. batched MARLISA at D={D}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = BatchedMARLISA(write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED),
+                            TrainConfig(warmup_steps=FAMILY_WARMUP, **TRAIN), random_seed=SEED,
+                            regression_update_every=MARLISA_EVERY,
+                            episode_time_steps=TRAIN_EPISODE, device=dev)
+    if tr.use_kernel_collect:
+        raise AssertionError("MARLISA took the kernel collect")
+    w0 = tr.base_state.nets.policy.mean_w.detach().clone()
+    hist = tr.train(FAMILY_WARMUP + FAMILY_STEPS, chunk=FAMILY_WARMUP + FAMILY_STEPS)
+    torch.cuda.synchronize()
+    moved = check_trained(tr, w0, hist, "MARLISA")
+    ms = tr.state
+    cv_total = float(ms.cv[..., 0].abs().max())
+    if not (float(ms.reg_w.abs().max()) > 0 and cv_total > 0):
+        raise AssertionError("MARLISA: the ridge weights or the coordination variables are zero")
+    if not torch.equal(ms.cv[..., 1], tr.cap_dispatched.expand(ms.cv.shape[:2])):
+        raise AssertionError("MARLISA: the capacity variables are not the dispatched shares")
+    step_ms, collect_ms, rate = train_rates(tr, results, "marlisa")
+    t0 = time.perf_counter()
+    table = tr.evaluate(n_steps=SHORT_STEPS)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    check_table(table, (D,), "BatchedMARLISA.evaluate")
+    results.update(marlisa_evaluate_168_s=eval_s,
+                   marlisa_s=time.perf_counter() - t_phase)
+    print(f"MARLISA: {tr.iterations} sweeps of the ring over {N_BUILDINGS} agents, ridge of "
+          f"{tr.reg_dim} features refit every {MARLISA_EVERY} steps; policy head moved by "
+          f"{moved:.3e}, |cv total| up to {cv_total:.4f}; step {step_ms:.2f} ms (ring, step and "
+          f"ridge {collect_ms:.2f}, update {step_ms - collect_ms:.2f}) = {rate:.4g} "
+          f"district-steps/s; evaluate with the live ring at S={SHORT_STEPS} {eval_s:.2f} s, "
+          f"cost_total {float(table['district|cost_total'].mean()):.6f}")
+    print(f"phase 27: {results['marlisa_s']:.1f} s; {nvidia_smi()}")
+
+
 def main(json_path=None):
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -1713,6 +1875,8 @@ def main(json_path=None):
     ev_kernel = ev_path(dev, results)
     lstm_kernel = lstm_path(dev, results)
     neighborhood_kernels = neighborhood_path(dev, results)
+    family_training(dev, results)
+    marlisa_training(dev, results)
 
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",

@@ -17,12 +17,14 @@ CUDA kernel launch (``core.rollout_fast``, ``core.evaluate_fast``): K1
 ``ops.neighborhood``, whose temperature and occupant sequence runs once per
 district in the post-pass kernel P6 ``ops.postpass``.
 
-The training path runs too: ``train.BatchedSAC`` trains per-building SAC
-agents (``agents.sac``, networks stacked over the agent axis) on
-thousands of district copies, encoding observations with
-``core.obs_encoder`` and collecting experience either step by step or in
-chunks whose battery recurrence is one launch of the hand-written
-collect kernel K2 (``ops.collect``).
+The training path runs too, on every family: ``train.BatchedSAC`` trains
+per-building SAC agents (``agents.sac``, networks stacked over the agent
+axis) on thousands of district copies, encoding observations with
+``core.obs_encoder`` and collecting experience either step by step or, on
+battery+PV districts, in chunks whose battery recurrence is one launch of
+the hand-written collect kernel K2 (``ops.collect``);
+``train_marlisa.BatchedMARLISA`` adds MARLISA's coordination ring and
+streaming ridge regression on top of it.
 
 The package imports ``torch`` and never ``jax`` nor the JAX package.
 Entry points take a ``device`` argument: ``None`` means the CUDA card,
@@ -55,6 +57,7 @@ _EXPORTS = {
     "evaluate_scripted": "citylearn_tpu_torch.core.evaluate_fast",
     "BatchedSAC": "citylearn_tpu_torch.train",
     "TrainConfig": "citylearn_tpu_torch.train",
+    "BatchedMARLISA": "citylearn_tpu_torch.train_marlisa",
 }
 
 

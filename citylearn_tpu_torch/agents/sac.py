@@ -108,13 +108,15 @@ class Policy(nn.Module):
         (self.log_std_w,), (self.log_std_b,) = _mlp_init(n_agents, [hidden[-1], act_dim],
                                                          generator, device)
 
-    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(A, N, K) -> mean, log_std, each (A, N, M)."""
+    def forward(self, obs: torch.Tensor, agents: slice = slice(None)
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(A, N, K) -> mean, log_std, each (A, N, M); ``agents`` picks a
+        run of the stacked agents, whose inputs ``obs`` then holds."""
         x = obs
         for w, b in zip(self.trunk_w, self.trunk_b):
-            x = torch.relu(_linear(x, w, b))
-        mean = _linear(x, self.mean_w, self.mean_b)
-        log_std = torch.clamp(_linear(x, self.log_std_w, self.log_std_b),
+            x = torch.relu(_linear(x, w[agents], b[agents]))
+        mean = _linear(x, self.mean_w[agents], self.mean_b[agents])
+        log_std = torch.clamp(_linear(x, self.log_std_w[agents], self.log_std_b[agents]),
                               LOG_STD_MIN, LOG_STD_MAX)
         return mean, log_std
 

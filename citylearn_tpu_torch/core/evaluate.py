@@ -253,10 +253,13 @@ def evaluate_districts_fn(cfg: StaticConfig, policy_fn: Callable,
 
 def _is_fresh(cfg: StaticConfig, params: DistrictParams, states: EnvState) -> bool:
     """Every district state equals the packed initial state at the first
-    district's episode-window offset."""
+    district's episode-window offset. NaN equals NaN here: an occupant's
+    set-point overrides start NaN-coded ("none")."""
     init = flatten(initial_state(cfg, params, int(states.data_offset[0])))
-    return all(bool(torch.equal(v, init[k].expand_as(v)))
-               for k, v in flatten(states).items())
+    same = lambda a, b: torch.equal(a, b) or (
+        a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+        and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    return all(same(v, init[k].expand_as(v)) for k, v in flatten(states).items())
 
 
 def evaluate_districts(cfg: StaticConfig, params: DistrictParams,

@@ -3,9 +3,10 @@ per-building learners on one CUDA card.
 
 The port of ``citylearn_tpu/train.py``'s ``BatchedSAC`` (the reference's
 per-building SAC, ``citylearn/agents/sac.py``, scaled out over a district
-batch). It is held against the JAX trainer on battery+PV districts; a
-thermal-storage district trains through the per-step path, which the
-tests do not cover yet:
+batch). It trains on every district family the port evaluates —
+battery+PV, thermal storage, EV chargers and washing machines, LSTM
+dynamics, the EULP and quebec neighborhoods — and is held against the
+JAX trainer on each (``tests/test_torch_train*.py``):
 
 - **Every district's experience is learned from.** The replay buffer is
   laid out (S, D, ...) — S slots x D districts — and each env step writes
@@ -15,17 +16,25 @@ tests do not cover yet:
 - **Districts are de-correlated**: exploration and policy noise are per
   district, and when the dataset is longer than the episode every
   district draws its own episode window offset at each reset.
+- **Heterogeneous districts train.** Buildings with different observation
+  and action sets are stacked by padding: encoders to a common width,
+  actions to a common width with a per-building mask (padded dims act 0).
+  Each (building, action slot) routes to a building-level action, a
+  charger's ``electric_vehicle_storage`` or a washing machine by a static
+  one-hot einsum.
 - **Two collect paths, one result.** The per-step path runs
-  :func:`citylearn_tpu_torch.core.step.district_step` once per env step.
-  On battery+PV districts the chunked path instead runs a whole chunk of
-  K steps as one batched policy sweep plus one launch of the collect
-  kernel K2 (:func:`citylearn_tpu_torch.ops.collect.battery_collect_chunk`),
-  then the chunk's K updates. Both draw the same random numbers (below),
+  :func:`citylearn_tpu_torch.core.step.district_step` once per env step,
+  on every family. On battery+PV districts the chunked path instead runs
+  a whole chunk of K steps as one batched policy sweep plus one launch of
+  the collect kernel K2
+  (:func:`citylearn_tpu_torch.ops.collect.battery_collect_chunk`), then
+  the chunk's K updates. Both draw the same random numbers (below),
   so their warmup transitions agree bit for bit in the actions.
 
 Random numbers. The JAX trainer replays a per-step key chain so that
 both paths draw alike. Here :class:`StepDraws` gives every trainer step
-``t`` and purpose (explore, act, sample, update, reset) a generator
+``t`` and purpose (explore, act, sample, update, reset, and the
+coordination ring of :mod:`citylearn_tpu_torch.train_marlisa`) a generator
 seeded from ``(seed, t, purpose)``: a draw depends only on its step,
 purpose and shape, never on the order in which a path issues it.
 ``torch`` streams never match ``jax.random``'s, so the tests feed
@@ -134,6 +143,7 @@ class StepDraws:
     (seed, step, purpose)."""
 
     EXPLORE, ACT, SAMPLE, UPDATE, RESET, INIT, EVAL = range(7)
+    RING = 7               # after the others, so that their draws stay as they were
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
@@ -153,6 +163,10 @@ class StepDraws:
     def act_noise(self, t: int, shape) -> torch.Tensor:
         """Standard normal policy noise, (D, A, M)."""
         return torch.randn(shape, generator=self.generator(t, self.ACT), device=self.device)
+
+    def ring_noise(self, t: int, shape) -> torch.Tensor:
+        """Standard normal noise of a coordination ring, (iterations, A, D, M)."""
+        return torch.randn(shape, generator=self.generator(t, self.RING), device=self.device)
 
     def sample(self, t: int, n: int, n_slots: int, n_districts: int):
         """Replay rows of an update: n (slot, district) index pairs."""
@@ -191,9 +205,6 @@ class BatchedSAC:
             raise ValueError("BatchedSAC trains per-building agents (decentralized)")
         self.env_cfg, self.params, self.layout = pack(self.spec, device=dev)
         check_supported(self.env_cfg)
-        if self.env_cfg.has_dynamics:
-            raise NotImplementedError(
-                "trainer action routing for cooling_device on an LSTM-dynamics district")
         B = self.env_cfg.n_buildings
 
         # --- observations: per-building encoders padded to a common width,
@@ -208,28 +219,46 @@ class BatchedSAC:
         self._enc_table = encode_obs(self.enc_stack, obs_static).reshape(
             obs_static.shape[0], -1)
 
-        # --- actions: padded to a common width with a mask, routed to the
-        # env's action names by a one-hot (A, M, n_keys) tensor ---
+        # --- actions: padded to a common width with a mask; each (building,
+        # slot) routes to its env action — a building-level key, a charger
+        # or a washing machine — by one-hot (A, M, n) tensors ---
         names = [list(b.active_actions) for b in self.spec.buildings]
         M = max(len(n) for n in names)
         self.act_dim = M
+        C, W = self.env_cfg.n_chargers, self.env_cfg.n_washing_machines
         act_low = np.zeros((B, M), np.float32)
         act_high = np.zeros((B, M), np.float32)
         act_mask = np.zeros((B, M), np.float32)
         w_bld = np.zeros((B, M, len(ACTION_KEYS)), np.float32)
+        w_ch = np.zeros((B, M, max(C, 1)), np.float32)
+        w_wm = np.zeros((B, M, max(W, 1)), np.float32)
+        # district-wide charger and machine indices, in building order
+        ch_slot = {(b.index, f"electric_vehicle_storage_{ch.charger_id}"): i
+                   for i, (b, ch) in enumerate((b, ch) for b in self.spec.buildings
+                                               for ch in b.chargers)}
+        wm_slot = {(b.index, wm.name): i
+                   for i, (b, wm) in enumerate((b, wm) for b in self.spec.buildings
+                                               for wm in b.washing_machines)}
         for bi, b in enumerate(self.spec.buildings):
             act_low[bi, :len(names[bi])] = np.asarray(b.action_low, np.float32)
             act_high[bi, :len(names[bi])] = np.asarray(b.action_high, np.float32)
             act_mask[bi, :len(names[bi])] = 1.0
             for m, k in enumerate(names[bi]):
-                if k not in ACTION_KEYS:
+                if k in ACTION_KEYS:
+                    w_bld[bi, m, ACTION_KEYS.index(k)] = 1.0
+                elif (bi, k) in ch_slot:
+                    w_ch[bi, m, ch_slot[(bi, k)]] = 1.0
+                elif (bi, k) in wm_slot:
+                    w_wm[bi, m, wm_slot[(bi, k)]] = 1.0
+                else:
                     raise NotImplementedError(f"trainer action routing for {k}")
-                w_bld[bi, m, ACTION_KEYS.index(k)] = 1.0
         t = lambda a: torch.tensor(a, device=dev)
         self.act_low, self.act_high, self.act_mask = t(act_low), t(act_high), t(act_mask)
         self.action_scale = (self.act_high - self.act_low) / 2.0
         self.action_bias = (self.act_high + self.act_low) / 2.0
         self.w_bld = t(w_bld)
+        self.w_ch = t(w_ch) if C else None
+        self.w_wm = t(w_wm) if W else None
 
         # per-district episode windows: when the dataset's simulation range
         # exceeds the episode length, each district rolls its own seeded
@@ -259,6 +288,9 @@ class BatchedSAC:
         return dataclasses.replace(st, data_offset=offsets)
 
     def _init_state(self, seed: int):
+        self.load_state(self._fresh_state(seed))
+
+    def _fresh_state(self, seed: int) -> TrainState:
         cfg = self.cfg
         A = self.env_cfg.n_buildings
         D = cfg.n_districts
@@ -270,7 +302,7 @@ class BatchedSAC:
             self.draws.offsets(0, StepDraws.INIT, D, self.max_offset))
         S = max(1, cfg.replay_capacity // D)    # replay slots (D rows each)
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self.load_state(TrainState(
+        return TrainState(
             env_state=env_state, nets=nets,
             replay_obs=zeros(S, D, A * self.obs_dim),
             replay_act=zeros(S, D, A, self.act_dim),
@@ -278,13 +310,19 @@ class BatchedSAC:
             replay_next=zeros(S, D, A * self.obs_dim),
             replay_done=zeros(S, D),
             replay_pos=0, replay_full=False, step=0,
-            cur_obs=self._encoded_obs(env_state)))
+            cur_obs=self._encoded_obs(env_state))
 
-    def load_state(self, state: TrainState):
+    @property
+    def base_state(self) -> TrainState:
+        """The SAC part of the trainer's state (a coordinating subclass
+        wraps it in a state of its own)."""
+        return self.state
+
+    def load_state(self, state):
         """Install ``state`` and re-sync the host-side episode phase from
         it (districts advance in lockstep: any district's ``t`` is it)."""
         self.state = state
-        self._phase = int(state.env_state.t[0])
+        self._phase = int(self.base_state.env_state.t[0])
 
     # ------------------------------------------------------------------
     def _encoded_obs(self, env_state: EnvState) -> torch.Tensor:
@@ -294,9 +332,16 @@ class BatchedSAC:
         return self._enc_table[tau].view(tau.shape[0], self.env_cfg.n_buildings, -1)
 
     def _actions_dict(self, a_env: torch.Tensor):
-        """(D, A, M) padded masked actions -> the step's action dict."""
+        """(D, A, M) padded masked actions -> the step's action dict: the
+        building-level keys (D, B), and on an EV district
+        ``electric_vehicle_storage`` (D, C) and ``washing_machine`` (D, W)."""
         bld = torch.einsum("dam,amk->kda", a_env, self.w_bld)
-        return {k: bld[i] for i, k in enumerate(ACTION_KEYS)}
+        out = {k: bld[i] for i, k in enumerate(ACTION_KEYS)}
+        if self.w_ch is not None:
+            out["electric_vehicle_storage"] = torch.einsum("dam,amc->dc", a_env, self.w_ch)
+        if self.w_wm is not None:
+            out["washing_machine"] = torch.einsum("dam,amw->dw", a_env, self.w_wm)
+        return out
 
     def _policy_actions(self, obs: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """(N, A, K) observations and (N, A, M) noise -> (N, A, M) sampled
@@ -310,7 +355,7 @@ class BatchedSAC:
     def _update(self, t: int, n_slots: int):
         """One SAC update of every agent on a batch drawn from the first
         ``n_slots`` replay slots (all districts)."""
-        cfg, ts = self.cfg, self.state
+        cfg, ts = self.cfg, self.base_state
         A, N = self.env_cfg.n_buildings, cfg.batch_size
         sel_s, sel_d = self.draws.sample(t, N, n_slots, cfg.n_districts)
         pick = lambda buf: buf[sel_s, sel_d]
@@ -323,7 +368,7 @@ class BatchedSAC:
                    alpha=cfg.alpha, discount=cfg.discount, tau=cfg.tau)
 
     def _store(self, idx, obs, act, rew, nxt, done):
-        ts = self.state
+        ts = self.base_state
         ts.replay_obs[idx] = obs
         ts.replay_act[idx] = act
         ts.replay_rew[idx] = rew
@@ -530,10 +575,10 @@ class BatchedSAC:
     # ------------------------------------------------------------------
     def save(self, path: str):
         """Write the networks and their Adam states."""
-        torch.save(self.state.nets.state_dict(), path)
+        torch.save(self.base_state.nets.state_dict(), path)
 
     def load(self, path: str):
-        self.state.nets.load_state_dict(torch.load(path, map_location=self.device))
+        self.base_state.nets.load_state_dict(torch.load(path, map_location=self.device))
 
     # full-state checkpointing (learner + env + replay + step): resumable
     # training needs the whole TrainState, where the reference pickles

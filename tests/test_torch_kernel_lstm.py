@@ -247,11 +247,17 @@ def test_packable_follows_jax_and_dispatch_falls_back(districts, monkeypatch):
 
 
 def test_trainer_refuses_the_family(tmp_path):
+    """The trainer takes the family since it routes ``cooling_device``
+    (the per-step collect: K2 serves battery+PV only) and still refuses a
+    central agent on it, as the JAX trainer does."""
     from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 
     path = write_lstm_dataset(str(tmp_path), n_rows=49)
-    with pytest.raises(NotImplementedError, match="cooling_device"):
-        BatchedSAC(path, TrainConfig(n_districts=2, hidden=(8, 8)), device="cpu")
+    cfg = TrainConfig(n_districts=2, hidden=(8, 8))
+    with pytest.raises(ValueError, match="decentralized"):
+        BatchedSAC(path, cfg, device="cpu", central_agent=True)
+    trainer = BatchedSAC(path, cfg, device="cpu")
+    assert trainer.env_cfg.has_dynamics and not trainer.use_kernel_collect
 
 
 def kernel_inputs(port_districts, name, D, seed=0):

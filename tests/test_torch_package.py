@@ -26,8 +26,12 @@ def test_export_resolves(name):
 
 def test_entry_points_of_every_family_are_exported():
     for name in ("run_battery_episode", "run_thermal_episode", "run_ev_episode",
-                 "run_lstm_episode", "run_neighborhood_episode", "evaluate_scripted"):
+                 "run_lstm_episode", "run_neighborhood_episode", "evaluate_scripted",
+                 "BatchedSAC", "BatchedMARLISA"):
         assert name in citylearn_tpu_torch._EXPORTS
+    # the trainers: BatchedSAC on every family, BatchedMARLISA on top of it
+    assert citylearn_tpu_torch._EXPORTS["BatchedMARLISA"] == "citylearn_tpu_torch.train_marlisa"
+    assert issubclass(citylearn_tpu_torch.BatchedMARLISA, citylearn_tpu_torch.BatchedSAC)
     with pytest.raises(AttributeError):
         citylearn_tpu_torch.not_a_name
 
@@ -43,3 +47,4 @@ def test_modules_import_no_jax_pandas_or_sklearn():
     assert out.stdout.strip() == "[]", out.stdout
     assert "citylearn_tpu_torch.ops.neighborhood" in MODULES
     assert "citylearn_tpu_torch.ops.postpass" in MODULES
+    assert "citylearn_tpu_torch.train_marlisa" in MODULES
