@@ -154,6 +154,17 @@ Phases, each of which raises on failure:
      ridge weights and the coordination variables are non-zero and each
      agent's capacity variable is the dispatched share before it, its ms
      per step, and ``evaluate`` with the live ring over 168 steps.
+ 28. the Gym env on the card, ``CityLearnEnv`` stepped through ``env.step``
+     under each family's scripted plan: battery+PV over the full year
+     (8759 steps), the thermal, EV, LSTM and quebec districts over 168
+     steps, the EULP district over 48; each env's KPI rows (numpy, no
+     pandas) against ``evaluate_scripted`` on the same schema and window
+     through the family's kernel (K1, K3, K4, K5, K6 and P6, each of which
+     must launch), within 2e-5 relative (the discomfort and resilience
+     KPIs of the LSTM and neighborhood districts within 2 steps in 168);
+     env steps/s and the share of a step spent outside ``district_step``
+     per family; then 168 battery+PV steps in the float64 parity mode on
+     the card against the same steps on the CPU, within 1e-6 of scale.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -208,6 +219,8 @@ from citylearn_tpu_torch.synthetic import (
     write_thermal_dataset,
 )
 from citylearn_tpu_torch import train as train_module
+from citylearn_tpu_torch.envs import environment
+from citylearn_tpu_torch.envs.environment import CityLearnEnv
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 from citylearn_tpu_torch.train_marlisa import BatchedMARLISA
 
@@ -280,6 +293,15 @@ FAMILY_CHUNK = 8                      # steps of each timed chunk
 EV_REWARD_FROM = 16                   # the synthetic EV district docks no EV before this step
 MARLISA_EVERY = 8                     # phase 27's regression_update_every
 TOL_PATHS = 2e-5              # per-step vs kernel collect: replay rows and state
+# phase 28: the Gym env's steps per family (None: the whole year), its KPI
+# rows against evaluate_scripted's table (the JAX package's
+# tests/test_evaluate_batched.py:60), and the parity mode on the card
+# against the CPU (tests/test_torch_parity_f64.py)
+ENV_STEPS = {"battery": None, "thermal": SHORT_STEPS, "ev": SHORT_STEPS, "lstm": SHORT_STEPS,
+             "eulp": EULP_TABLE_STEPS, "quebec": SHORT_STEPS}
+TOL_ENV = 2e-5
+PARITY_STEPS = 168
+TOL_PARITY = 1e-6
 # KPIs that are NaN by the reference's semantics on data with no occupants
 # and no outage (a proportion of zero occupied or zero outage steps)
 NAN_KPIS = {"discomfort_proportion", "discomfort_cold_proportion",
@@ -1568,6 +1590,193 @@ def marlisa_training(dev, results):
     print(f"phase 27: {results['marlisa_s']:.1f} s; {nvidia_smi()}")
 
 
+def plan_actions(env, plans):
+    """``s -> the env's action lists at step s`` under a family's expanded
+    plans (name -> (S, n)): building actions by building, charger actions
+    by charger, machine actions by machine; actions without a plan act 0."""
+    slot = {}
+    for key, names in (("electric_vehicle_storage",
+                        [f"electric_vehicle_storage_{ch.charger_id}"
+                         for b in env.spec.buildings for ch in b.chargers]),
+                       ("washing_machine",
+                        [wm.name for b in env.spec.buildings for wm in b.washing_machines])):
+        slot.update({name: (key, i) for i, name in enumerate(names)})
+    cols = [[slot.get(name, (name, bi)) for name in b.active_actions]
+            for bi, b in enumerate(env.spec.buildings)]
+
+    def actions(s):
+        lists = [[float(plans[k][s, i]) if k in plans else 0.0 for k, i in row]
+                 for row in cols]
+        return [sum(lists, [])] if env.central_agent else lists
+
+    return actions
+
+
+def env_rows_error(rows, table, comfort_steps, steps):
+    """Largest error of the env's KPI rows against a kernel-backed table,
+    relative to max(|value|, 1); raises beyond ``TOL_ENV`` (the
+    discomfort and resilience KPIs may also move by ``comfort_steps`` steps
+    in ``steps``). An undefined row (None) must be NaN in the table."""
+    by_key = {}
+    for r in rows:
+        v = float("nan") if r["value"] is None else r["value"]
+        by_key.setdefault(f"{r['level']}|{r['cost_function']}", []).append(v)
+    if set(by_key) != set(table):
+        raise AssertionError(f"env rows and kernel table differ in KPIs: "
+                             f"{sorted(set(by_key) ^ set(table))}")
+    worst = worst_comfort = 0.0
+    for k, b in table.items():
+        a = torch.tensor(by_key[k], dtype=torch.float64)
+        b = b.double().reshape(-1).cpu()
+        if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+            raise AssertionError(f"env rows and kernel table differ in shape or NaN on {k}")
+        finite = ~b.isnan()
+        err = float(((a - b).abs()[finite] / b.abs()[finite].clamp(min=1.0)).max()) \
+            if finite.any() else 0.0
+        comfort = comfort_steps and k.split("|")[1].startswith(
+            ("discomfort", "one_minus_thermal_resilience"))
+        tol = TOL_ENV + (comfort_steps / steps if comfort else 0.0)
+        if comfort:
+            worst_comfort = max(worst_comfort, err)
+        else:
+            worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"env rows vs kernel table at S={steps}: {k} {err}")
+    return worst, worst_comfort
+
+
+def env_path(dev, results):
+    """Phase 28: the Gym env on the card, each family's KPI rows against
+    its kernel's table, steps/s, and the parity mode against the CPU."""
+    phase("28. the Gym env on the card")
+    t_phase = time.perf_counter()
+    B_ev, C, V, W = EV_SHAPE
+    families = (
+        ("battery", lambda tmp: write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED),
+         {"electrical_storage": basic_rbc_table()}, (k1.battery_episode,)),
+        ("thermal", lambda tmp: write_thermal_dataset(tmp, THERMAL_BUILDINGS, N_ROWS, SEED),
+         thermal_rbc_tables(), (k3.thermal_episode,)),
+        ("ev", lambda tmp: write_ev_dataset(tmp, B_ev, C, V, W, N_ROWS, SEED), ev_plans(C),
+         (k4.ev_episode,)),
+        ("lstm", lambda tmp: write_lstm_dataset(tmp, n_rows=N_ROWS, seed=SEED), lstm_plans(),
+         (k5.lstm_episode,)),
+        ("eulp", lambda tmp: write_neighborhood_dataset(tmp, EULP_BUILDINGS, N_ROWS, SEED),
+         neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)),
+        ("quebec", lambda tmp: write_neighborhood_dataset(tmp, QUEBEC_BUILDINGS, N_ROWS, SEED,
+                                                          quebec=True),
+         neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)))
+    shipped_step = environment.district_step
+    launched = {}
+    for name, write, tables, kernels in families:
+        t0 = time.perf_counter()
+        rows_of_episode = N_ROWS if ENV_STEPS[name] is None else ENV_STEPS[name] + 1
+        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+            warnings.simplefilter("ignore")           # the quebec trees are absent
+            schema = write(tmp)
+            env = CityLearnEnv(schema, episode_time_steps=rows_of_episode, device=dev)
+        set_up_s = time.perf_counter() - t0
+        cfg, params = env.cfg, env.params
+        S = cfg.time_steps - 1
+        policy = ScriptedPolicy(tables)
+        actions = plan_actions(env, policy.expanded(cfg, params, S))
+        # the district step, timed to its end on the card, inside env.step
+        in_step = [0.0]
+
+        def timed_step(*args):
+            t = time.perf_counter()
+            out = shipped_step(*args)
+            torch.cuda.synchronize()
+            in_step[0] += time.perf_counter() - t
+            return out
+
+        environment.district_step = timed_step
+        try:
+            env.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(S):
+                env.step(actions(s))
+            episode_s = time.perf_counter() - t0
+        finally:
+            environment.district_step = shipped_step
+        if not env.terminated:
+            raise AssertionError(f"{name}: the env did not end its episode after {S} steps")
+        rows = env.evaluate_rows()
+        baseline = ("_without_storage_and_partial_load" if cfg.has_dynamics
+                    else "_without_storage")
+        for kernel in kernels:
+            kernel.launches = 0
+        table = evaluate_scripted(cfg, params, policy, n_steps=S, baseline_condition=baseline,
+                                  device=dev)
+        torch.cuda.synchronize()
+        counts = {kernel.__name__: kernel.launches for kernel in kernels}
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: evaluate_scripted launched {counts}")
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+        comfort = COMFORT_STEPS if cfg.has_dynamics else 0
+        worst, worst_comfort = env_rows_error(rows, table, comfort, S)
+        rate = S / episode_s
+        outside = 1.0 - in_step[0] / episode_s
+        results.update({f"env_{name}_steps_per_s": rate, f"env_{name}_ms_per_step":
+                        episode_s * 1e3 / S, f"env_{name}_outside_step_share": outside,
+                        f"env_{name}_table_error": worst,
+                        f"env_{name}_comfort_error": worst_comfort,
+                        f"env_{name}_set_up_s": set_up_s})
+        print(f"{name}: B={cfg.n_buildings}, {S} env steps in {episode_s:.2f} s = {rate:.1f} "
+              f"steps/s ({episode_s * 1e3 / S:.3f} ms a step, {outside:.1%} of it outside "
+              f"district_step); KPI rows vs the kernel table through {counts}: max error "
+              f"{worst:.3e} (tolerance {TOL_ENV:g})"
+              + (f", discomfort and resilience {worst_comfort:.3e} (tolerance "
+                 f"{COMFORT_STEPS} steps in {S})" if comfort else "")
+              + f"; set-up {set_up_s:.1f} s; {nvidia_smi()}")
+        del env
+
+    # the float64 parity mode: the card against the CPU on the same steps
+    with tempfile.TemporaryDirectory() as tmp:
+        schema = write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED)
+        envs = [CityLearnEnv(schema, episode_time_steps=PARITY_STEPS + 1, parity_f64=True,
+                             device=d) for d in (dev, "cpu")]
+    rng = torch.Generator().manual_seed(SEED)
+    obs = [[env.reset()[0]] for env in envs]
+    rewards = [[], []]
+    for _ in range(PARITY_STEPS):
+        acts = [torch.rand(len(b.active_actions), generator=rng, dtype=torch.float64) * 2 - 1
+                for b in envs[0].spec.buildings]
+        for i, env in enumerate(envs):
+            o, r, *_ = env.step([a.numpy() for a in acts])
+            obs[i].append(o)
+            rewards[i].append(r)
+    if not (envs[0].cfg.parity_f64 and envs[0].params.battery.capacity.dtype == torch.float64):
+        raise AssertionError("the parity env did not pack at float64")
+    errors = {}
+    as_tensor = lambda x: torch.tensor(x, dtype=torch.float64)
+    pairs = {"observations": [as_tensor([sum(o, []) for o in ob]) for ob in obs],
+             "rewards": [as_tensor(r) for r in rewards]}
+    pairs.update({f"history {k}": [torch.from_numpy(env._history[k]).double() for env in envs]
+                  for k in envs[1]._history})
+    for k, (card, cpu) in pairs.items():
+        err = float((card - cpu).abs().max()) / max(1.0, float(cpu.abs().max()))
+        errors[k] = err
+        if not err <= TOL_PARITY:
+            raise AssertionError(f"parity mode: the card and the CPU differ on {k} by {err}")
+    values = lambda env: torch.tensor([float("nan") if r["value"] is None else r["value"]
+                                       for r in env.evaluate_rows()], dtype=torch.float64)
+    card_kpis, cpu_kpis = (values(env) for env in envs)
+    finite = ~cpu_kpis.isnan()
+    kpi_err = float(((card_kpis - cpu_kpis).abs()[finite]
+                     / cpu_kpis.abs()[finite].clamp(min=1.0)).max())
+    if not (torch.equal(card_kpis.isnan(), cpu_kpis.isnan()) and kpi_err <= TOL_PARITY):
+        raise AssertionError(f"parity mode: the card's KPI rows differ from the CPU's by {kpi_err}")
+    worst = max(errors, key=errors.get)
+    print(f"parity mode, {PARITY_STEPS} battery+PV steps, the card against the CPU: max error "
+          f"{errors[worst]:.3e} of scale ({worst}), observations {errors['observations']:.3e}, "
+          f"rewards {errors['rewards']:.3e}, KPI rows {kpi_err:.3e} (tolerance {TOL_PARITY:g})")
+    results.update(env_parity_max_error=errors[worst], env_parity_kpi_error=kpi_err,
+                   env_yardstick_launches=launched, env_s=time.perf_counter() - t_phase)
+    print(f"phase 28: yardstick launches {launched}; {results['env_s']:.1f} s; {nvidia_smi()}")
+
+
 def main(json_path=None):
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -1877,6 +2086,7 @@ def main(json_path=None):
     neighborhood_kernels = neighborhood_path(dev, results)
     family_training(dev, results)
     marlisa_training(dev, results)
+    env_path(dev, results)
 
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",

@@ -26,6 +26,14 @@ the hand-written collect kernel K2 (``ops.collect``);
 ``train_marlisa.BatchedMARLISA`` adds MARLISA's coordination ring and
 streaming ridge regression on top of it.
 
+The Gymnasium surface runs on every family too: ``CityLearnEnv``
+(``envs.environment``) steps one district through ``core.step`` with one
+host copy per step, with the reference's observations, rewards, building
+views (``envs.views``), CSV renderer (``envs.render``), episode splits
+(``envs.episode``) and ``evaluate()`` table, and with the float64 parity
+mode (``parity_f64=True``) that tracks the reference's float64 arithmetic
+and float32 stores.
+
 The package imports ``torch`` and never ``jax`` nor the JAX package.
 Entry points take a ``device`` argument: ``None`` means the CUDA card,
 and raises when there is none; pass ``device="cpu"`` to run the plain
@@ -58,6 +66,8 @@ _EXPORTS = {
     "BatchedSAC": "citylearn_tpu_torch.train",
     "TrainConfig": "citylearn_tpu_torch.train",
     "BatchedMARLISA": "citylearn_tpu_torch.train_marlisa",
+    "CityLearnEnv": "citylearn_tpu_torch.envs.environment",
+    "EvaluationCondition": "citylearn_tpu_torch.envs.views",
 }
 
 

@@ -29,7 +29,8 @@ class BatteryStepResult(NamedTuple):
 
 def battery_charge(bp: BatteryParams, soc_prev: torch.Tensor,
                    prev_efficiency: torch.Tensor, degraded_capacity: torch.Tensor,
-                   energy: torch.Tensor, time_step_ratio: float) -> BatteryStepResult:
+                   energy: torch.Tensor, time_step_ratio: float,
+                   parity_f64: bool = False) -> BatteryStepResult:
     """One charge/discharge event.
 
     ``energy`` is the requested kWh *before* the reference's internal
@@ -38,12 +39,26 @@ def battery_charge(bp: BatteryParams, soc_prev: torch.Tensor,
     cancel. ``prev_efficiency`` is the efficiency history tail used by the
     DoD limit (``energy_model.py:1046-1049`` reads ``round_trip_efficiency``
     *before* the new efficiency is appended).
+
+    ``parity_f64`` reproduces the reference's NumPy-2 scalar dtype flow:
+    ``soc`` is read as an np.float32 scalar and Python-float (weak)
+    parameters keep the chain in float32 until a strong np.float64 enters —
+    so ``soc * capacity`` (``energy_model.py:666``) and the DoD limit chain
+    (``energy_model.py:1045-1049``) round to float32 exactly when the
+    parameter is a schema literal (``capacity_weak``/``dod_weak``), while
+    autosized/sampled parameters (np.float64, strong) keep float64.
     """
     cap = bp.capacity
     energy = energy * time_step_ratio
     action_energy = energy
 
-    energy_init = torch.clamp(soc_prev * cap * (1.0 - bp.loss_coefficient), min=0.0)
+    if parity_f64:
+        rw = lambda x, weak: torch.where(weak, x.float().to(x.dtype), x)
+    else:
+        rw = lambda x, weak: x
+
+    energy_init = torch.clamp(rw(soc_prev * cap, bp.capacity_weak)
+                              * (1.0 - bp.loss_coefficient), min=0.0)
     charging = energy >= 0.0
 
     # SOC-dependent max input/output power (energy_model.py:1070-1090)
@@ -64,7 +79,12 @@ def battery_charge(bp: BatteryParams, soc_prev: torch.Tensor,
     # --- discharging branch (energy_model.py:1045-1052) ---
     old_rt = torch.sqrt(prev_efficiency)
     soc_limit = 1.0 - bp.depth_of_discharge
-    diff_cap = (soc_prev - soc_limit) * cap
+    if parity_f64:
+        # np.float32(soc) - weak soc_limit rounds f32; x weak capacity again
+        soc_diff = rw(soc_prev - soc_limit, bp.dod_weak)
+        diff_cap = rw(soc_diff * cap, bp.dod_weak & bp.capacity_weak)
+    else:
+        diff_cap = (soc_prev - soc_limit) * cap
     energy_limit_dod = -torch.clamp(diff_cap * old_rt, min=0.0)
     e_discharge = torch.maximum(torch.maximum(-max_power, energy_limit_dod), energy)
     eff_discharge = interp_reference(

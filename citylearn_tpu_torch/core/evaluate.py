@@ -28,7 +28,7 @@ from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.core import hvac, kpi
 from citylearn_tpu_torch.core.params import initial_state
 from citylearn_tpu_torch.core.rollout_fast import lstm_packable, neighborhood_packable
-from citylearn_tpu_torch.core.step import check_supported, district_step
+from citylearn_tpu_torch.core.step import district_step
 from citylearn_tpu_torch.core.types import DistrictParams, EnvState, StaticConfig, flatten
 
 BASELINE_CONDITIONS = ("_without_storage", "_without_storage_and_pv",
@@ -283,7 +283,6 @@ def evaluate_districts(cfg: StaticConfig, params: DistrictParams,
         kernel_family,
     )
 
-    check_supported(cfg)
     dev = resolve_device(device)
     params, states = params.to(dev), states.to(dev)
     D = states.t.shape[0]

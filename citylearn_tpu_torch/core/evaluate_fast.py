@@ -270,7 +270,9 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
     the reference's rolling/random splits (``base.py:76-129``): input
     series, hour tables and the KPI window all follow the offset.
     Stochastic-outage signals are baked for the default window only, so a
-    shifted window on such a dataset raises."""
+    shifted window on such a dataset raises. The float64 parity mode
+    raises too (:func:`rollout_fast.refuse_parity`)."""
+    rollout_fast.refuse_parity(cfg)
     family = kernel_family(cfg)
     if family is None:
         raise ValueError("configuration is not kernel-eligible; use "

@@ -1,12 +1,19 @@
-"""KPI / cost functions (reference ``citylearn/cost_function.py``) as
-tensor reductions over the leading time axis of ``(T, ...)`` series —
-the counterparts of the JAX package's in-graph ``*_jnp`` versions.
+"""KPI / cost functions (reference ``citylearn/cost_function.py``).
+
+Two implementations share the same math:
+  - tensor reductions over the leading time axis of ``(T, ...)`` series,
+    the counterparts of the JAX package's in-graph ``*_jnp`` versions
+    (used by the batched evaluator);
+  - numpy final-value versions (host-side, used by the Gym env's
+    ``evaluate()``) that reproduce the pandas rolling/groupby semantics
+    including NaN handling, the same code as the JAX package's ``*_np``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -110,3 +117,130 @@ def normalized_unserved_energy(expected: torch.Tensor, served: torch.Tensor,
     unserved = torch.where(power_outage == 0.0, zero, expected - served)
     e = torch.where(power_outage == 0.0, zero, expected)
     return torch.sum(unserved, dim=0) / torch.sum(e, dim=0)
+
+
+# ----------------------------------------------------------------------
+# numpy (exact pandas-equivalent) final values
+# ----------------------------------------------------------------------
+
+def ramping_np(net: np.ndarray, down_ramp: bool = False, net_export: bool = True) -> float:
+    """Reference ``cost_function.py:10-59`` final rolling value."""
+    d = np.diff(np.asarray(net, dtype=np.float64))
+    d = np.abs(d) if down_ramp else np.clip(d, 0.0, None)
+    if not net_export:
+        d = np.where(np.asarray(net[1:], dtype=np.float64) < 0, 0.0, d)
+    return float(np.nansum(d))
+
+
+def one_minus_load_factor_np(net: np.ndarray, window: int = 730) -> float:
+    """Reference ``cost_function.py:61-86``: per-``window`` group
+    ``1 - mean/max``, then mean over groups (NaN groups skipped, as pandas
+    rolling mean does)."""
+    net = np.asarray(net, dtype=np.float64)
+    n = len(net)
+    groups = np.arange(n) // window
+    vals = []
+    for g in range(groups[-1] + 1 if n else 0):
+        seg = net[groups == g]
+        mx = seg.max()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            vals.append(1.0 - seg.mean() / mx)
+    vals = np.asarray(vals, dtype=np.float64)
+    return float(np.nanmean(vals)) if len(vals) else float("nan")
+
+
+def peak_np(net: np.ndarray, window: int = 24) -> float:
+    """Reference ``cost_function.py:88-111``: mean of per-window maxima."""
+    net = np.asarray(net, dtype=np.float64)
+    n = len(net)
+    groups = np.arange(n) // window
+    vals = [net[groups == g].max() for g in range(groups[-1] + 1 if n else 0)]
+    return float(np.mean(vals)) if vals else float("nan")
+
+
+def electricity_consumption_np(net: np.ndarray) -> float:
+    return float(np.clip(np.asarray(net, np.float64), 0, None).sum())
+
+
+def zero_net_energy_np(net: np.ndarray) -> float:
+    return float(np.asarray(net, np.float64).sum())
+
+
+def carbon_emissions_np(emission: np.ndarray) -> float:
+    return float(np.clip(np.asarray(emission, np.float64), 0, None).sum())
+
+
+def cost_np(cost: np.ndarray) -> float:
+    return float(np.clip(np.asarray(cost, np.float64), 0, None).sum())
+
+
+def quadratic_np(net: np.ndarray) -> float:
+    c = np.clip(np.asarray(net, np.float64), 0, None)
+    return float((c ** 2).sum())
+
+
+def discomfort_np(indoor_t, cooling_set_point, heating_set_point, band,
+                  occupant_count=None) -> Tuple[float, ...]:
+    """Reference ``cost_function.py:224-321`` final values:
+    (unmet, cold, hot, cold_min_delta, cold_max_delta, cold_avg_delta,
+    hot_min_delta, hot_max_delta, hot_avg_delta)."""
+    t = np.asarray(indoor_t, np.float64)
+    csp = np.asarray(cooling_set_point, np.float64)
+    hsp = np.asarray(heating_set_point, np.float64)
+    band = np.broadcast_to(np.asarray(band, np.float64), t.shape)
+    occ = np.ones_like(t) if occupant_count is None else np.asarray(occupant_count, np.float64)
+    occupied = float((occ > 0.0).sum())
+    cooling_delta = np.where(occ == 0.0, 0.0, t - csp)
+    heating_delta = np.where(occ == 0.0, 0.0, t - hsp)
+    hot = cooling_delta > band
+    cold = heating_delta < -band
+    unmet = hot | cold
+    denom = occupied if occupied > 0 else np.nan
+    cold_d = np.abs(np.clip(heating_delta, None, 0.0))
+    hot_d = np.abs(np.clip(cooling_delta, 0.0, None))
+    return (
+        float(unmet.sum() / denom), float(cold.sum() / denom), float(hot.sum() / denom),
+        float(cold_d.min()), float(cold_d.max()), float(cold_d.mean()),
+        float(hot_d.min()), float(hot_d.max()), float(hot_d.mean()),
+    )
+
+
+def one_minus_thermal_resilience_np(power_outage, **discomfort_kwargs) -> float:
+    """Reference ``cost_function.py:324-353``: discomfort restricted to
+    outage time steps by zeroing occupant count elsewhere."""
+    po = np.asarray(power_outage, np.float64)
+    occ = discomfort_kwargs.get("occupant_count")
+    occ = (np.ones_like(po) if occ is None else np.asarray(occ, np.float64)).copy()
+    occ[po == 0.0] = 0.0
+    discomfort_kwargs = dict(discomfort_kwargs)
+    discomfort_kwargs["occupant_count"] = occ
+    return discomfort_np(**discomfort_kwargs)[0]
+
+
+def normalized_unserved_energy_np(expected, served, power_outage=None) -> float:
+    """Reference ``cost_function.py:356-388``."""
+    e = np.asarray(expected, np.float64).copy()
+    s = np.asarray(served, np.float64).copy()
+    po = np.ones_like(e) if power_outage is None else np.asarray(power_outage, np.float64)
+    unserved = e - s
+    unserved[po == 0] = 0.0
+    e = e.copy()
+    e[po == 0] = 0.0
+    total_expected = e.sum()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(unserved.sum() / total_expected)
+
+
+def safe_div(control: float, baseline: float) -> Optional[float]:
+    """Reference ``citylearn.py:1172-1189``: non-finite -> 0; 0/0 -> 1;
+    x/0 -> None."""
+    def coerce(x):
+        try:
+            v = float(x)
+            return v if np.isfinite(v) else 0.0
+        except Exception:
+            return 0.0
+    c, b = coerce(control), coerce(baseline)
+    if b == 0.0:
+        return 1.0 if c == 0.0 else None
+    return c / b

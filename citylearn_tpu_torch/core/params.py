@@ -4,8 +4,8 @@ Data layout is time-major ``(T, B)`` so each step gathers one contiguous
 ``(B,)`` row per field (replaces the reference's per-step
 ``TimeSeriesData.__getattr__`` slicing, ``data.py:313``). The packed
 leaves equal those of the JAX package's ``pack`` for the battery+PV,
-thermal-storage, EV and LSTM-dynamics districts (its float64-parity
-provenance flags are not carried).
+thermal-storage, EV and LSTM-dynamics districts, at float32 and, for the
+float64 parity mode, at float64.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from citylearn_tpu_torch.core.types import (
     StaticConfig,
     StorageTankParams,
     WashingMachineParams,
+    map_tensors,
 )
 
 PERIODIC_MAX = {"hour": 24, "day_type": 7, "month": 12, "minutes": 60}
@@ -196,12 +197,13 @@ def _obs_static(spec: DistrictSpec, layout: ObsLayout) -> np.ndarray:
     return obs
 
 
-def _pack_evs(spec: DistrictSpec, episode_steps: int, t
+def _pack_evs(spec: DistrictSpec, episode_steps: int, t, param_dtype=np.float32
               ) -> Tuple[Optional[ChargerParams], Optional[EVParams],
                          Optional[WashingMachineParams], Dict]:
     """Stack chargers/EVs/washing machines + precompile SOC event tensors;
-    ``t`` puts a numpy array on the device. Also returns the
-    ``StaticConfig`` fields of the EV family."""
+    ``t`` puts a numpy array on the device and ``param_dtype`` is the
+    dtype of the device parameters (the schema's Python floats). Also
+    returns the ``StaticConfig`` fields of the EV family."""
     all_chargers = [ch for b in spec.buildings for ch in b.chargers]
     all_wms = [wm for b in spec.buildings for wm in b.washing_machines]
     n_evs = len(spec.electric_vehicles)
@@ -223,6 +225,7 @@ def _pack_evs(spec: DistrictSpec, episode_steps: int, t
 
     chargers = evs = wms = None
     f32 = lambda vals: t(np.asarray(vals, np.float32))
+    pf = lambda vals: t(np.asarray(vals, param_dtype))
     i32 = lambda vals: t(np.asarray(vals, np.int32))
     if all_chargers:
         def sched(field):
@@ -264,7 +267,7 @@ def _pack_evs(spec: DistrictSpec, episode_steps: int, t
         cfg["charging_penalty_coefficient"] = float(
             rb_attrs.get("charging_constraint_penalty_coefficient") or 1.0)
 
-        per_charger = lambda name: f32([getattr(ch, name) for ch in all_chargers])
+        per_charger = lambda name: pf([getattr(ch, name) for ch in all_chargers])
         chargers = ChargerParams(
             **{name: per_charger(name) for name in (
                 "efficiency", "charge_eff_x", "charge_eff_y", "discharge_eff_x",
@@ -281,10 +284,12 @@ def _pack_evs(spec: DistrictSpec, episode_steps: int, t
             cc_phase_building=i32(cc_phase_buildings))
         force, drift = resolve_ev_events(spec.buildings, n_evs, episode_steps,
                                          drift_seed=spec.random_seed)
+        per_ev = lambda name: np.asarray([getattr(e.battery, name)
+                                          for e in spec.electric_vehicles])
         evs = EVParams(
             battery=BatteryParams(**{
-                f.name: f32([getattr(e.battery, f.name) for e in spec.electric_vehicles])
-                for f in dataclasses.fields(BatteryParams)}),
+                f.name: t(v if v.dtype == bool else v.astype(param_dtype))
+                for f in dataclasses.fields(BatteryParams) for v in [per_ev(f.name)]}),
             force_soc=t(force), drift_mult=t(drift))
     if all_wms:
         starts, ends, loads = [], [], []
@@ -493,11 +498,21 @@ def _reward_config(spec: DistrictSpec) -> Dict:
     )
 
 
-def pack(spec: DistrictSpec, device=None
+def pack(spec: DistrictSpec, device=None, param_dtype: torch.dtype = torch.float32
          ) -> Tuple[StaticConfig, DistrictParams, ObsLayout]:
     """``(cfg, params, layout)`` of a compiled district, with every
-    parameter tensor on ``device`` (the CUDA card by default)."""
+    parameter tensor on ``device`` (the CUDA card by default).
+
+    ``param_dtype=torch.float64`` packs for the float64 parity mode: the
+    device parameters (Python floats in the reference, schema JSON values)
+    at float64, then every float32 leaf but the LSTM groups lifted to
+    float64 (losslessly: the reference's data arrays are float32), and
+    ``cfg.parity_f64`` set."""
     dev = resolve_device(device)
+    parity = param_dtype == torch.float64
+    if not parity and param_dtype != torch.float32:
+        raise ValueError(f"param_dtype must be torch.float32 or torch.float64, not {param_dtype}")
+    np_dtype = np.float64 if parity else np.float32
     sl = slice(spec.simulation_start_time_step, spec.simulation_end_time_step + 1)
 
     solar = np.stack(
@@ -548,10 +563,10 @@ def pack(spec: DistrictSpec, device=None
         """Stack one device's resolved attributes over the buildings."""
         vals = {f.name: np.asarray([getattr(getattr(b, attr), f.name) for b in spec.buildings])
                 for f in dataclasses.fields(cls)}
-        return cls(**{k: t(v if v.dtype == bool else v.astype(np.float32))
+        return cls(**{k: t(v if v.dtype == bool else v.astype(np_dtype))
                       for k, v in vals.items()})
 
-    chargers, evs, wms, ev_cfg = _pack_evs(spec, ep_steps, t)
+    chargers, evs, wms, ev_cfg = _pack_evs(spec, ep_steps, t, np_dtype)
     dynamics, dyn_cfg = _pack_dynamics(spec, sl, t)
     occupant, occ_cfg = _pack_occupant(spec, ep_steps, t)
     # a dynamics district always steps the cooling and heating blocks
@@ -562,6 +577,7 @@ def pack(spec: DistrictSpec, device=None
         central_agent=spec.central_agent,
         seconds_per_time_step=spec.seconds_per_time_step,
         time_step_ratio=spec.time_step_ratio,
+        parity_f64=parity,
         simulate_power_outage=tuple(b.simulate_power_outage for b in spec.buildings),
         has_stochastic_outage=any(b.simulate_power_outage and b.stochastic_power_outage
                                   for b in spec.buildings),
@@ -588,14 +604,23 @@ def pack(spec: DistrictSpec, device=None
         obs_static=t(_obs_static(spec, layout)),
         dynamics=dynamics, occupant=occupant, chargers=chargers, evs=evs,
         washing_machines=wms)
+    if parity:
+        # the LSTM groups stay float32, like the reference's torch models
+        params = dataclasses.replace(lift_f64(dataclasses.replace(params, dynamics=())),
+                                     dynamics=dynamics)
     return cfg, params, layout
+
+
+def lift_f64(tree):
+    """A copy of ``tree`` with every float32 tensor lifted to float64."""
+    return map_tensors(lambda x: x.double() if x.dtype == torch.float32 else x, tree)
 
 
 def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> DistrictParams:
     """:class:`DistrictParams` from a flat ``{"series.hour": array, ...}``
     dict keyed by field path — the JAX package's packed parameters
-    carried across as numpy arrays. Keys the port does not read (the
-    float64-parity provenance flags) are ignored; a missing key raises
+    carried across as numpy arrays. Keys the port does not read are
+    ignored; a missing key raises
     ``KeyError``, except that a charger, EV or washing-machine block with
     no key at all is absent (``None``), as on a district without them;
     the dynamics groups and their per-layer weights are keyed by index

@@ -11,7 +11,7 @@ import torch
 
 from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.core.params import initial_state
-from citylearn_tpu_torch.core.step import check_supported, district_step
+from citylearn_tpu_torch.core.step import district_step
 from citylearn_tpu_torch.core.types import DistrictParams, EnvState, StaticConfig, map_tensors
 
 ACTION_KEYS = ("cooling_storage", "heating_storage", "dhw_storage",
@@ -91,7 +91,6 @@ def rollout_districts(cfg: StaticConfig, params: DistrictParams,
     """Batched closed-loop episode rollout over a (D, ...) state batch on
     ``device`` (the CUDA card by default) — the library-level entry point
     for large batched rollouts."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return rollout_policy(cfg, params.to(dev), states.to(dev), n_steps, policy)
 
@@ -108,7 +107,6 @@ def batched_initial_states(cfg: StaticConfig, params: DistrictParams,
     :func:`citylearn_tpu_torch.core.params.rebake_outage` and pass
     ``outage_rebaked=True``; without it a nonzero offset would silently
     read all-zero outage signals and is rejected."""
-    check_supported(cfg)
     if cfg.has_stochastic_outage and data_offset != 0 and not outage_rebaked:
         raise ValueError(
             "batched rollouts of stochastic-outage datasets at a shifted "

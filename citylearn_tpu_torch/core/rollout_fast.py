@@ -48,6 +48,19 @@ _REWARD_OK = ("RewardFunction", "IndependentSACReward")
 # at exponent 1 (reward_function.py:65-88,159-168)
 
 
+def refuse_parity(cfg: StaticConfig):
+    """Raise ``ValueError`` for a float64 parity-mode configuration.
+
+    The whole-episode kernels compute in float32 and have no store-point
+    rounding, so they would not honour the mode. (The JAX package's kernel
+    paths never read ``parity_f64``; only its Gym env sets it.) The stepped
+    path runs the mode."""
+    if cfg.parity_f64:
+        raise ValueError("the whole-episode kernels run float32 and refuse the float64 "
+                         "parity mode (parity_f64); step it with core.step.district_step "
+                         "or the Gym env")
+
+
 def eligible(cfg: StaticConfig) -> bool:
     """Battery+PV-only districts with no outage/dynamics/EV/WM and the
     default exponent-1 reward — the vectorized-training workhorse
@@ -177,6 +190,7 @@ def run_battery_episode(cfg: StaticConfig, params: DistrictParams,
     the sim range (the reference's rolling/random ``EpisodeTracker``
     splits, ``base.py:76-129``): input series and hour tables follow the
     window; explicit per-step plans stay episode-relative."""
+    refuse_parity(cfg)
     if not eligible(cfg):
         raise ValueError("configuration not eligible for the battery fast path")
     params = params.to(resolve_device(device))
@@ -258,6 +272,7 @@ def run_thermal_episode(cfg: StaticConfig, params: DistrictParams,
     district 0 is appended (see :mod:`citylearn_tpu_torch.ops.thermal`
     row constants). ``data_offset`` shifts the episode window as in
     :func:`run_battery_episode`."""
+    refuse_parity(cfg)
     if not eligible_thermal(cfg):
         raise ValueError("configuration not eligible for the thermal fast path")
     params = params.to(resolve_device(device))
@@ -428,6 +443,7 @@ def run_ev_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
     ``record_series=True`` an (N_EREC, S, B) per-step stream of district
     0 is appended (net, raw battery balance/soc, charger and washing-
     machine consumptions, reward)."""
+    refuse_parity(cfg)
     if not eligible_ev(cfg):
         raise ValueError("configuration not eligible for the EV fast path")
     params = params.to(resolve_device(device))
@@ -600,6 +616,7 @@ def run_lstm_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int
     0 is appended (see :mod:`citylearn_tpu_torch.ops.lstm` row constants).
     ``data_offset`` shifts the episode window as in
     :func:`run_battery_episode`."""
+    refuse_parity(cfg)
     if not lstm_packable(cfg, params):
         raise ValueError("configuration not eligible for the LSTM fast path")
     params = params.to(resolve_device(device))
@@ -727,6 +744,7 @@ def run_neighborhood_episode(cfg: StaticConfig, params: DistrictParams, n_distri
     district depends on the temperature of the post-pass and is not
     summed here. ``data_offset`` shifts the episode window as in
     :func:`run_battery_episode`."""
+    refuse_parity(cfg)
     if not neighborhood_packable(cfg, params):
         raise ValueError("configuration not eligible for the neighborhood fast path")
     params = params.to(resolve_device(device))

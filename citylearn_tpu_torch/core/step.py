@@ -8,7 +8,9 @@ the EV chargers, electric vehicles, washing machines and charging
 constraints of the ``plus_evs`` family, and the LSTM temperature
 dynamics, partial-load HVAC control and power outages of the 2023
 family, and the occupant thermostat interaction of the neighborhood
-family. The float64 parity mode raises ``NotImplementedError``.
+family. The float64 parity mode (``cfg.parity_f64``) runs the same step in
+float64 and rounds to float32 where the reference stores into its float32
+arrays (:func:`_store_rounder`).
 
 Everything is elementwise over a ``(D, B)`` batch of districts and
 buildings; charger, EV and machine quantities are ``(D, C)``, ``(D, V)``
@@ -64,20 +66,26 @@ from citylearn_tpu_torch.core.types import (
     map_tensors,
 )
 
-#: configuration flags of blocks this step does not carry
-_UNSUPPORTED = ("parity_f64",)
+
+def _store_rounder(cfg: StaticConfig):
+    """Float32 store-point rounding for parity mode.
+
+    The reference computes each step in Python floats (float64) but stores
+    every carried quantity into float32 numpy arrays (SOC/energy_balance
+    ``energy_model.py:801-803``, per-device electricity_consumption
+    ``energy_model.py:155``, net/cost/emission ``building.py:2559-2561``,
+    demand/temperature series writes). In ``parity_f64`` mode the math runs
+    in float64 and rounds at exactly those store points, so that a
+    year-long trajectory tracks the reference to ~1 float32 ulp. Identity
+    in the normal (all-float32) mode."""
+    if cfg.parity_f64:
+        return lambda x: x.float().double()
+    return lambda x: x
 
 
-def check_supported(cfg: StaticConfig):
-    """Raise ``NotImplementedError`` for a configuration outside the
-    battery+PV, thermal-storage, EV, LSTM-dynamics and occupant districts."""
-    on = [name for name in _UNSUPPORTED if getattr(cfg, name)]
-    if on:
-        raise NotImplementedError(
-            f"the PyTorch port steps battery+PV, thermal-storage, EV, LSTM-dynamics and "
-            f"occupant districts (cooling, heating and DHW devices and tanks, battery, PV, "
-            f"chargers, EVs, washing machines, temperature dynamics, power outages, "
-            f"occupant thermostat interaction); this configuration sets {', '.join(on)}")
+def _stored(res, r32):
+    """A battery or tank event with its SOC and energy balance stored."""
+    return res._replace(soc=r32(res.soc), energy_balance=r32(res.energy_balance))
 
 
 class _ThermalResult(NamedTuple):
@@ -94,7 +102,7 @@ def _flex(outage: torch.Tensor, solar_abs: torch.Tensor,
     return torch.where(outage, cap, torch.full_like(cap, torch.inf))
 
 
-def _thermal_block(dev: HVACParams, tank: StorageTankParams, soc_prev: torch.Tensor,
+def _thermal_block(dev: HVACParams, tank_p: StorageTankParams, soc_prev: torch.Tensor,
                    demand: torch.Tensor, action: torch.Tensor, outdoor_t: torch.Tensor,
                    heating: bool, conv_capacity: torch.Tensor, hours_ratio_applies: bool,
                    outage: torch.Tensor, solar_abs: torch.Tensor, cons_accum: torch.Tensor,
@@ -112,40 +120,65 @@ def _thermal_block(dev: HVACParams, tank: StorageTankParams, soc_prev: torch.Ten
     district-level consumption accumulator.
     """
     hours_ratio = cfg.seconds_per_time_step / 3600.0
+    # action * capacity stays float64 in the parity mode as in the
+    # reference: actions reach update_<end_use>_storage as np.float64
+    # scalars (citylearn.py:1063-1134), and np.float64 * np.float32 is float64
     energy_req = action * conv_capacity * (hours_ratio if hours_ratio_applies else 1.0)
     ratio = cfg.time_step_ratio
-    dev_cons = lambda out: torch.clamp(hvac.input_power(dev, out, outdoor_t, heating), min=0.0)
-    store_cons = lambda bal: hvac.input_power(dev, torch.clamp(bal, min=0.0), outdoor_t, heating)
+    parity = cfg.parity_f64
+    r32 = _store_rounder(cfg)
+    tank = lambda energy: _stored(tank_charge(tank_p, soc_prev, energy / ratio, ratio, parity),
+                                  r32)
+    store_cons = lambda bal: r32(hvac.input_power(dev, torch.clamp(bal, min=0.0), outdoor_t,
+                                                  heating, parity))
+
+    # The reference's ``min(demand, max_output)`` is a Python builtin min
+    # over mixed-dtype numpy scalars: the float32 demand-series object vs
+    # the float64 ``get_max_output_power`` product. Whichever OBJECT wins
+    # sets the downstream division dtype — a saturated device stores an
+    # UNROUNDED float64 consumption, an unsaturated one a float32-rounded
+    # value (building.py:1641-1661 with energy_model.py:281,301). Parity
+    # mode selects the rounding per value.
+    def dev_cons(out, max_out, demand_side):
+        raw = torch.clamp(hvac.input_power(dev, out, outdoor_t, heating, parity,
+                                           round_result=False), min=0.0)
+        return torch.where(demand_side <= max_out, r32(raw), raw) if parity else raw
 
     # ---- variant A: device first, then storage charge (action >= 0) ----
     # update_energy_from_<end_use>_device (building.py:1641-1661): storage
     # balance at t is still 0, so storage_output = 0.
     flex1 = _flex(outage, solar_abs, cons_accum)
-    max_out1 = hvac.max_output_power(dev, outdoor_t, heating, flex1, dev_cons_init)
+    max_out1 = hvac.max_output_power(dev, outdoor_t, heating, flex1, dev_cons_init, parity)
     out_A = torch.minimum(demand, max_out1)
-    cons_dev_A = dev_cons(out_A)
+    cons_dev_A = dev_cons(out_A, max_out1, demand)
     # update_<end_use>_storage charging branch (building.py:1663-1687):
     # clamp by the device's max output given consumption booked so far.
     flex2 = _flex(outage, solar_abs, cons_accum + cons_dev_A)
     max_out2 = hvac.max_output_power(dev, outdoor_t, heating, flex2,
-                                     dev_cons_init + cons_dev_A)
+                                     dev_cons_init + cons_dev_A, parity)
     charge_A = torch.minimum(max_out2, energy_req)
-    tank_A = tank_charge(tank, soc_prev, charge_A / ratio, ratio)
+    tank_A = tank(charge_A)
     cons_store_A = store_cons(tank_A.energy_balance)
 
     # ---- variant B: storage discharge first, then device (action < 0) ----
     discharge_B = torch.maximum(-demand, energy_req)
-    tank_B = tank_charge(tank, soc_prev, discharge_B / ratio, ratio)
+    tank_B = tank(discharge_B)
     cons_store_B = store_cons(tank_B.energy_balance)     # 0 for a true discharge
     storage_out_B = -torch.clamp(tank_B.energy_balance, max=0.0)
     flex_B = _flex(outage, solar_abs, cons_accum + cons_store_B)
     max_out_B = hvac.max_output_power(dev, outdoor_t, heating, flex_B,
-                                      dev_cons_init + cons_store_B)
-    out_B = torch.minimum(demand - storage_out_B, max_out_B)
-    cons_dev_B = dev_cons(out_B)
+                                      dev_cons_init + cons_store_B, parity)
+    # demand (a float32 store) - storage_output (a float32 store) rounds to
+    # float32 in the reference
+    residual_B = r32(demand - storage_out_B)
+    out_B = torch.minimum(residual_B, max_out_B)
+    cons_dev_B = dev_cons(out_B, max_out_B, residual_B)
 
     discharging = action < 0.0
     pick = lambda a, b: torch.where(discharging, b, a)
+    # no store rounding on the sum: the reference's per-device
+    # electricity_consumption arrays are float64 and a saturated device's
+    # term keeps its unrounded float64 value (see dev_cons above)
     apply_cons = pick(cons_dev_A + cons_store_A, cons_dev_B + cons_store_B)
     return (_ThermalResult(soc=pick(tank_A.soc, tank_B.soc),
                            balance=pick(tank_A.energy_balance, tank_B.energy_balance),
@@ -167,6 +200,7 @@ def _partial_load_demand(cfg: StaticConfig, params: DistrictParams, t: torch.Ten
     Returns the controlled (cooling, heating) demands, (D, B) each."""
     zero = torch.zeros_like(cooling_demand)
     hours_ratio = cfg.seconds_per_time_step / 3600.0
+    r32 = _store_rounder(cfg)
     coh_all = actions.get("cooling_or_heating_device", zero)
     cool_all = actions.get("cooling_device", zero)
     heat_all = actions.get("heating_device", zero)
@@ -185,15 +219,15 @@ def _partial_load_demand(cfg: StaticConfig, params: DistrictParams, t: torch.Ten
         mode, out_t = hvac_mode[:, m], outdoor_t[:, m]
         partial_c = hvac.max_output_power(cool_dev, out_t, False,
                                           cool_act * cool_dev.nominal_power * hours_ratio,
-                                          dev_init_cool[:, m])
-        partial_c = torch.where((mode == 1) | (mode == 3), partial_c, zero[:, m])
+                                          dev_init_cool[:, m], cfg.parity_f64)
+        partial_c = r32(torch.where((mode == 1) | (mode == 3), partial_c, zero[:, m]))
         cooling_demand = cooling_demand.index_copy(
             1, m, torch.where(control_warm & cool_active, partial_c, cooling_demand[:, m]))
         # heating uses no hours ratio (building.py:3146) — shipped quirk
         partial_h = hvac.max_output_power(heat_dev, out_t, True,
                                           heat_act * heat_dev.nominal_power,
-                                          dev_init_heat[:, m])
-        partial_h = torch.where((mode == 2) | (mode == 3), partial_h, zero[:, m])
+                                          dev_init_heat[:, m], cfg.parity_f64)
+        partial_h = r32(torch.where((mode == 2) | (mode == 3), partial_h, zero[:, m]))
         heating_demand = heating_demand.index_copy(
             1, m, torch.where(control_warm & heat_active, partial_h, heating_demand[:, m]))
     return cooling_demand, heating_demand
@@ -265,6 +299,7 @@ def occupant_update(cfg: StaticConfig, params: DistrictParams, state, csp_data: 
 
     Returns ``(csp_eff, hsp_eff, occ_state_dict)``."""
     occ = params.occupant
+    r32 = _store_rounder(cfg)
     t = t.long()
     is_t0 = (t == 0)[:, None]
     csp_eff = torch.where(torch.isfinite(state.occ_csp_override), state.occ_csp_override,
@@ -319,16 +354,16 @@ def occupant_update(cfg: StaticConfig, params: DistrictParams, state, csp_data: 
     nan = torch.full_like(temp_t, float("nan"))
     # this step's effective set points take the fresh mutation; reversion
     # applies from t + 1 (building.py:3310-3317)
-    new_csp_ov = torch.where(revert, nan, torch.where(cool_trig, current_sp + delta,
-                                                      state.occ_csp_override))
-    new_hsp_ov = torch.where(revert, nan, torch.where(heat_trig, current_sp + delta,
-                                                      state.occ_hsp_override))
-    csp_eff = torch.where(cool_trig, current_sp + delta, csp_eff)
-    hsp_eff = torch.where(heat_trig, current_sp + delta, hsp_eff)
+    new_csp_ov = r32(torch.where(revert, nan, torch.where(cool_trig, current_sp + delta,
+                                                          state.occ_csp_override)))
+    new_hsp_ov = r32(torch.where(revert, nan, torch.where(heat_trig, current_sp + delta,
+                                                          state.occ_hsp_override)))
+    csp_eff = r32(torch.where(cool_trig, current_sp + delta, csp_eff))
+    hsp_eff = r32(torch.where(heat_trig, current_sp + delta, hsp_eff))
     counter = torch.where(revert, torch.full_like(counter, -1), counter)
     return csp_eff, hsp_eff, dict(
         occ_csp_override=new_csp_ov, occ_hsp_override=new_hsp_ov, occ_hold_counter=counter,
-        occ_prev_temp=temp_t, occ_prev_csp=csp_eff, occ_prev_hsp=hsp_eff)
+        occ_prev_temp=r32(temp_t), occ_prev_csp=csp_eff, occ_prev_hsp=hsp_eff)
 
 
 class _EVResult(NamedTuple):
@@ -394,6 +429,7 @@ def _ev_block(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     the offline SOC event tensors of ``compiler/events.py``; ``a`` is the
     (D, C) ``electric_vehicle_storage`` action."""
     ch, evp = params.chargers, params.evs
+    r32 = _store_rounder(cfg)
     t = state.t.long()
     is_t0 = (t == 0)[:, None]
     force, drift = evp.force_soc[t], evp.drift_mult[t]          # (D, V), episode-relative
@@ -432,16 +468,19 @@ def _ev_block(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     gidx = torch.clamp(conn, min=0)
     of_ev = lambda leaf: leaf[gidx]                             # (V, ...) -> (D, C, ...)
     at_charger = lambda x: torch.gather(x, 1, gidx)             # (D, V) -> (D, C)
-    bp_c = BatteryParams(**{f.name: of_ev(getattr(evp.battery, f.name))
-                            for f in dataclasses.fields(BatteryParams)})
+    bp_c = BatteryParams(**{f.name: None if leaf is None else of_ev(leaf)
+                            for f in dataclasses.fields(BatteryParams)
+                            for leaf in [getattr(evp.battery, f.name)]})
     # EV battery charge is called with energy_kwh directly — no
     # _convert_energy_for_storage pre-division (charger.py:316)
     res = battery_charge(bp_c, at_charger(soc_read), at_charger(state.ev_efficiency),
-                         at_charger(state.ev_degraded_capacity), energy_kwh, 1.0)
+                         at_charger(state.ev_degraded_capacity), energy_kwh, 1.0,
+                         cfg.parity_f64)
+    res = _stored(res, r32)
     applied = (a != 0.0) & connected
     balance = torch.where(applied, res.energy_balance, zero)
-    cons_c = torch.where(applied,
-                         torch.where(balance >= 0.0, balance / eff, balance * eff), zero)
+    cons_c = r32(torch.where(applied,
+                             torch.where(balance >= 0.0, balance / eff, balance * eff), zero))
     # scatter only the applied charges: the others go to a spare column
     # that is dropped (an EV at two chargers in one step is outside the
     # data's contract; one of the two updates would win)
@@ -467,7 +506,7 @@ def _ev_block(cfg: StaticConfig, params: DistrictParams, state: EnvState,
             max_discharging_power=ch.max_discharging_power,
             violation_kwh=violation)
     return _EVResult(
-        chargers_consumption=segment_sum(cons_c, ch.building_index, cfg.n_buildings),
+        chargers_consumption=r32(segment_sum(cons_c, ch.building_index, cfg.n_buildings)),
         ev_soc=ev_soc,
         ev_efficiency=scatter(state.ev_efficiency, res.efficiency),
         ev_degraded_capacity=scatter(state.ev_degraded_capacity, res.degraded_capacity),
@@ -493,7 +532,8 @@ def _washing_machines(cfg: StaticConfig, params: DistrictParams, state: EnvState
                & (start <= tw) & (tw <= end))
     load = wmp.triggered_load[t]
     cons_w = torch.where(trigger, load, torch.zeros_like(load))
-    return segment_sum(cons_w, wmp.building_index, cfg.n_buildings), initiated | trigger
+    return (_store_rounder(cfg)(segment_sum(cons_w, wmp.building_index, cfg.n_buildings)),
+            initiated | trigger)
 
 
 def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
@@ -510,13 +550,14 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     district's chargers and ``washing_machine`` (D, W) over its machines; a
     missing or inactive action is 0.0 (reference ``building.py:1561-1564``).
     """
-    check_supported(cfg)
     series = params.series
     t = state.t
     tau = (state.data_offset + t).long()
     is_t0 = (t == 0)[:, None]
     ratio = cfg.time_step_ratio
     hours_ratio = cfg.seconds_per_time_step / 3600.0
+    parity = cfg.parity_f64
+    r32 = _store_rounder(cfg)
 
     at = lambda arr: arr[tau]                      # (T, B) -> (D, B)
     nsl = at(series.non_shiftable_load)
@@ -540,14 +581,15 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     # the heating device is not a heat pump (building.py:2629-2632) —
     # shipped quirk.
     def heating_input(output):
-        return torch.where(params.heating_device.is_heat_pump,
-                           hvac.input_power(params.heating_device, output, outdoor_t, True),
-                           output / params.dhw_device.efficiency)
+        return r32(torch.where(params.heating_device.is_heat_pump,
+                               hvac.input_power(params.heating_device, output, outdoor_t, True,
+                                                parity),
+                               output / params.dhw_device.efficiency))
 
-    reset_cool = (hvac.input_power(params.cooling_device, cooling_demand_ideal, outdoor_t,
-                                   False) if cfg.any_cooling else zero)
+    reset_cool = (r32(hvac.input_power(params.cooling_device, cooling_demand_ideal, outdoor_t,
+                                       False, parity)) if cfg.any_cooling else zero)
     reset_heat = heating_input(heating_demand_ideal) if cfg.any_heating else zero
-    reset_dhw = (hvac.input_power(params.dhw_device, dhw_demand, outdoor_t, True)
+    reset_dhw = (r32(hvac.input_power(params.dhw_device, dhw_demand, outdoor_t, True, parity))
                  if cfg.any_dhw else zero)
     cons_accum = t0(reset_cool + reset_heat + reset_dhw + nsl)
 
@@ -561,9 +603,9 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     # building.py:1606-1609) ----
     bat_action = action("electrical_storage")
     bat_energy = bat_action * params.battery.nominal_power * hours_ratio
-    battery = lambda energy: battery_charge(
+    battery = lambda energy: _stored(battery_charge(
         params.battery, state.battery_soc, state.battery_efficiency,
-        state.battery_degraded_capacity, energy / ratio, ratio)
+        state.battery_degraded_capacity, energy / ratio, ratio, parity), r32)
     bat_early = battery(bat_energy)
     bat_discharging = bat_action < 0.0
     cons_accum = cons_accum + torch.where(bat_discharging, bat_early.energy_balance, zero)
@@ -598,7 +640,7 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         dhw = inert(state.dhw_storage_soc)
 
     # ---- non-shiftable load (building.py:1784-1789) ----
-    nsl_met = torch.minimum(nsl, _flex(outage, solar_abs, cons_accum))
+    nsl_met = r32(torch.minimum(nsl, _flex(outage, solar_abs, cons_accum)))
     cons_accum = cons_accum + nsl_met
 
     # ---- electrical storage, late variant (charging, building.py:1791-1812):
@@ -636,36 +678,42 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
 
     # ---- update_variables accounting (building.py:2615-2703): the t == 0
     # branch re-adds demand-derived consumption
-    uv_cool = (hvac.input_power(params.cooling_device, cool.device_output + cool.balance,
-                                outdoor_t, False) if cfg.any_cooling else zero)
-    uv_heat = heating_input(heat.device_output + heat.balance) if cfg.any_heating else zero
-    uv_dhw = (hvac.input_power(params.dhw_device, dhw.device_output + dhw.balance,
-                               outdoor_t, True) if cfg.any_dhw else zero)
+    uv_cool = (r32(hvac.input_power(params.cooling_device,
+                                    r32(cool.device_output) + cool.balance, outdoor_t, False,
+                                    parity)) if cfg.any_cooling else zero)
+    uv_heat = (heating_input(r32(heat.device_output) + heat.balance) if cfg.any_heating
+               else zero)
+    uv_dhw = (r32(hvac.input_power(params.dhw_device, r32(dhw.device_output) + dhw.balance,
+                                   outdoor_t, True, parity)) if cfg.any_dhw else zero)
     cool_total = cool.apply_consumption + t0(reset_cool + uv_cool)
     heat_total = heat.apply_consumption + t0(reset_heat + uv_heat)
     dhw_total = dhw.apply_consumption + t0(reset_dhw + uv_dhw)
     nsl_total = nsl_met + t0(nsl + nsl_met)
     bat_total = bat.energy_balance + t0(bat.energy_balance)
-    solar_neg = -solar_abs
+    # the per-device electricity_consumption arrays are float64 in the
+    # reference: only the net store rounds to float32 (building.py:2559)
+    solar_neg = r32(-solar_abs)
     net = (cool_total + heat_total + dhw_total + nsl_total + bat_total + solar_neg
            + ev.chargers_consumption + wm_cons)
-    net = torch.where(outage, zero, net)
-    cost = net * pricing
-    emission = torch.clamp(net * carbon, min=0.0)
+    net = r32(torch.where(outage, zero, net))
+    cost = r32(net * pricing)
+    emission = r32(torch.clamp(net * carbon, min=0.0))
 
     # storage electricity consumption series for counterfactual KPIs
     # (building.py:414-464): device input power of the tank balance
-    cool_store_cons = (hvac.input_power(params.cooling_device, cool.balance, outdoor_t, False)
+    store_cons = lambda dev, balance, heating: r32(hvac.input_power(
+        dev, balance, outdoor_t, heating, parity))
+    cool_store_cons = (store_cons(params.cooling_device, cool.balance, False)
                        if cfg.any_cooling else zero)
-    heat_store_cons = (hvac.input_power(params.heating_device, heat.balance, outdoor_t, True)
+    heat_store_cons = (store_cons(params.heating_device, heat.balance, True)
                        if cfg.any_heating else zero)
-    dhw_store_cons = (hvac.input_power(params.dhw_device, dhw.balance, outdoor_t, True)
+    dhw_store_cons = (store_cons(params.dhw_device, dhw.balance, True)
                       if cfg.any_dhw else zero)
 
     # ---- LSTM temperature dynamics (building.py:2935-3078) on the fresh
     # demand observations (building.py:1435-1437) ----
-    cooling_demand_obs = cool.device_output + torch.clamp(-cool.balance, min=0.0)
-    heating_demand_obs = heat.device_output + torch.clamp(-heat.balance, min=0.0)
+    cooling_demand_obs = r32(cool.device_output) + torch.clamp(-cool.balance, min=0.0)
+    heating_demand_obs = r32(heat.device_output) + torch.clamp(-heat.balance, min=0.0)
     temp_t, lstm_h, lstm_c, dyn_input = dynamics_update(
         cfg, params, tau, t, cooling_demand_obs, heating_demand_obs, temp_ideal,
         state.lstm_h, state.lstm_c, state.dyn_input)

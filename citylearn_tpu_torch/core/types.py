@@ -61,6 +61,11 @@ class BatteryParams:
     power_efficiency_curve_y: torch.Tensor
     capacity_power_curve_x: torch.Tensor
     capacity_power_curve_y: torch.Tensor
+    # parity-mode NumPy-2 scalar provenance (bool (B,)): True when the
+    # reference holds the parameter as a weak Python float, making
+    # ``np.float32(soc) * capacity`` round to float32 (see core/battery.py)
+    capacity_weak: Optional[torch.Tensor] = None
+    dod_weak: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -87,6 +92,8 @@ class StorageTankParams:
     initial_soc: torch.Tensor
     max_input_power: torch.Tensor         # +inf when unconstrained
     max_output_power: torch.Tensor
+    capacity_weak: Optional[torch.Tensor] = None    # parity-mode provenance (B,) bool
+    capacity_npf32: Optional[torch.Tensor] = None   # capacity itself np.float32 (B,) bool
 
 
 @dataclasses.dataclass
@@ -258,9 +265,14 @@ class StaticConfig:
     # paths need data_offset == 0 or a signal rebaked by
     # core/params.rebake_outage.
     has_stochastic_outage: bool = False
-    # the float64 parity mode is a block the JAX package carries and this
-    # port does not yet: a configuration that sets it raises in core/step.py
-    parity_f64: bool = False             # float64 reference-parity mode
+    # Reference-parity mode: compute each step in float64 (like the
+    # reference's Python-float arithmetic) but round to float32 exactly
+    # where the reference stores into its float32 arrays (SOC,
+    # energy_balance, per-device electricity_consumption, net/cost/
+    # emission, demand/temperature series writes). Needs parameters packed
+    # at float64 (``pack(..., param_dtype=torch.float64)``); the Gym env
+    # sets it up (envs/environment.py). The whole-episode kernels refuse it.
+    parity_f64: bool = False
     reward_exponent: float = 1.0
     reward_type: str = "RewardFunction"
     # ComfortReward parameters (reference reward_function.py:216-340)

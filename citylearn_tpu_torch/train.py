@@ -75,7 +75,7 @@ from citylearn_tpu_torch.core.obs_encoder import (
 )
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS, batched_initial_states
-from citylearn_tpu_torch.core.step import check_supported, district_step
+from citylearn_tpu_torch.core.step import district_step
 from citylearn_tpu_torch.core.types import EnvState
 from citylearn_tpu_torch.ops.collect import battery_collect_chunk, prepare_battery_collect
 
@@ -204,7 +204,6 @@ class BatchedSAC:
         if self.spec.central_agent:
             raise ValueError("BatchedSAC trains per-building agents (decentralized)")
         self.env_cfg, self.params, self.layout = pack(self.spec, device=dev)
-        check_supported(self.env_cfg)
         B = self.env_cfg.n_buildings
 
         # --- observations: per-building encoders padded to a common width,

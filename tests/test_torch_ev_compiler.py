@@ -123,7 +123,7 @@ def test_pack_equals_jax(compiled):
     mine = flatten(params)
     # 61 leaves of a battery+PV district plus 18 of the chargers, 13 of the
     # EVs (a battery's 11, force, drift) and 4 of the machines
-    assert set(mine) == set(carried) and len(mine) == 61 + 18 + 13 + 4
+    assert set(mine) == set(carried) and len(mine) == 69 + 18 + 15 + 4
     for k, v in mine.items():
         assert v.dtype == carried[k].dtype, k
         np.testing.assert_array_equal(v.numpy(), carried[k].numpy(), err_msg=k)

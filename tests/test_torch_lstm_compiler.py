@@ -27,8 +27,7 @@ from citylearn_tpu_torch.compiler.schema import _load_dynamics, compile_schema
 from citylearn_tpu_torch.core import rollout_fast
 from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
 from citylearn_tpu_torch.core.params import initial_state, pack, params_from_numpy, rebake_outage
-from citylearn_tpu_torch.core.rollout import batched_initial_states
-from citylearn_tpu_torch.core.step import check_supported
+from citylearn_tpu_torch.core.rollout import batched_initial_states, rollout_policy
 from citylearn_tpu_torch.core.types import flatten
 from citylearn_tpu_torch.synthetic import LSTM_INPUTS, write_lstm_dataset
 
@@ -41,9 +40,9 @@ VARIANTS = {
     "outage": (dict(outage=True), dict(episode_time_steps=169)),
     "stochastic": (dict(stochastic_outage=True), dict(episode_time_steps=168)),
 }
-#: packed parameter leaves: 61 of a district without dynamics plus, per
+#: packed parameter leaves: 69 of a district without dynamics plus, per
 #: group, 9 leaves and 3 per layer
-N_LEAVES = {"default": 76, "central": 76, "heterogeneous": 88, "outage": 76, "stochastic": 76}
+N_LEAVES = {"default": 84, "central": 84, "heterogeneous": 96, "outage": 84, "stochastic": 84}
 
 
 def jax_leaves(tree):
@@ -103,7 +102,6 @@ def test_pack_equals_jax(compiled, variant):
     assert cfg.any_outage == (variant in ("outage", "stochastic"))
     assert cfg.has_stochastic_outage == (variant == "stochastic")
     assert len(cfg.dyn_groups) == (2 if variant == "heterogeneous" else 1)
-    check_supported(cfg)
     assert layout.union_names == jlayout.union_names
     assert layout.building_indices == jlayout.building_indices
     carried = flatten(params_from_numpy(jax_leaves(jparams), device="cpu"))
@@ -236,9 +234,10 @@ def test_writer_is_deterministic(tmp_path, kw):
 
 
 def test_occupants_still_raise(tmp_path):
-    """Of the two blocks this family once refused, the float64 parity mode
-    still raises; an occupant block now compiles (an occupant whose
-    parameter file is missing fails on the file) and steps."""
+    """Both blocks this family once refused now run: an occupant block
+    compiles (an occupant whose parameter file is missing fails on the
+    file) and steps, and the float64 parity mode packs and steps, while
+    the whole-episode kernel path (K5's) refuses it."""
     path = write_lstm_dataset(str(tmp_path), n_rows=48)
     with open(path) as f:
         schema = json.load(f)
@@ -249,7 +248,17 @@ def test_occupants_still_raise(tmp_path):
                      "parameters_filename": "missing.csv"}
     with pytest.raises(FileNotFoundError, match="missing.csv"):
         compile_schema(schema)
-    cfg = pack(compile_schema(path), device="cpu")[0]
-    check_supported(dataclasses.replace(cfg, has_occupant=True))
-    with pytest.raises(NotImplementedError, match="parity_f64"):
-        check_supported(dataclasses.replace(cfg, parity_f64=True))
+    cfg, params, _ = pack(compile_schema(path, episode_time_steps=8), device="cpu",
+                          param_dtype=torch.float64)
+    assert cfg.parity_f64 and params.battery.capacity.dtype == torch.float64
+    assert params.dynamics[0].w_ih[0].dtype == torch.float32
+    states = batched_initial_states(cfg, params, 1, device="cpu")
+    _, out = rollout_policy(cfg, params, states, 6, lambda p, s: {})
+    assert out["reward_sum"].dtype == torch.float64
+    assert torch.isfinite(out["reward_sum"]).all()
+    plan = ScriptedPolicy({"cooling_device": np.full(24, 0.5, np.float32)})
+    with pytest.raises(ValueError, match="parity_f64"):
+        evaluate_scripted(cfg, params, plan, device="cpu")
+    with pytest.raises(ValueError, match="parity_f64"):
+        rollout_fast.run_lstm_episode(cfg, params, 1, plan.expanded(cfg, params, 6), n_steps=6,
+                         device="cpu")

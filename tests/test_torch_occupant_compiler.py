@@ -121,7 +121,7 @@ def test_pack_equals_jax(districts, name):
     ours = flatten(params)
     # 61 leaves of a plain district, 9 per dynamics group and 3 per layer,
     # and the occupant's 12
-    n_leaves = 61 + sum(9 + 3 * L for _, L, *_ in cfg.dyn_groups) + 12
+    n_leaves = 69 + sum(9 + 3 * L for _, L, *_ in cfg.dyn_groups) + 12
     assert set(ours) == set(carried) and len(ours) == n_leaves
     for k, v in ours.items():
         assert v.dtype == carried[k].dtype, k

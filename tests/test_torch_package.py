@@ -1,8 +1,9 @@
 """The port's package surface on the CPU: every name ``_EXPORTS`` lists
 resolves on import, and importing every module of the package loads
-neither JAX nor the JAX package nor pandas nor scikit-learn (the card's
-machine has none of them; scikit-learn is imported by ``pickle`` only when
-an occupant's decision trees are read)."""
+neither JAX nor the JAX package nor pandas nor scikit-learn nor gymnasium
+(the card's machine has none of them; scikit-learn is imported by
+``pickle`` only when an occupant's decision trees are read, pandas and
+gymnasium by the Gym env only where its frame and spaces are built)."""
 
 import importlib
 import pkgutil
@@ -40,7 +41,7 @@ def test_modules_import_no_jax_pandas_or_sklearn():
     code = ("import sys, importlib\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'citylearn_tpu', 'pandas', 'sklearn')]\n"
+            "('jax', 'citylearn_tpu', 'pandas', 'sklearn', 'gymnasium')]\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, cwd=citylearn_tpu_torch.__path__[0] + "/..")
@@ -48,3 +49,4 @@ def test_modules_import_no_jax_pandas_or_sklearn():
     assert "citylearn_tpu_torch.ops.neighborhood" in MODULES
     assert "citylearn_tpu_torch.ops.postpass" in MODULES
     assert "citylearn_tpu_torch.train_marlisa" in MODULES
+    assert "citylearn_tpu_torch.envs.environment" in MODULES

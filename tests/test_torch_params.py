@@ -36,7 +36,7 @@ def test_pack_equals_jax(packed):
     assert layout.building_indices == jlayout.building_indices
     carried = flatten(params_from_numpy(jax_leaves(jparams), device="cpu"))
     ours = flatten(params)
-    assert set(ours) == set(carried) and len(ours) == 61
+    assert set(ours) == set(carried) and len(ours) == 69
     for k, v in ours.items():
         assert v.dtype == carried[k].dtype, k
         np.testing.assert_array_equal(v.numpy(), carried[k].numpy(), err_msg=k)

@@ -25,7 +25,9 @@ from citylearn_tpu.core.params import pack as jax_pack
 from citylearn_tpu.core.step import district_step as jax_step
 from citylearn_tpu_torch.compiler.schema import compile_schema
 from citylearn_tpu_torch.core import rollout
+from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
 from citylearn_tpu_torch.core.params import pack
+from citylearn_tpu_torch.core.rollout_fast import run_battery_episode
 from citylearn_tpu_torch.core.step import district_step
 from citylearn_tpu_torch.core.types import EnvState
 from citylearn_tpu_torch.synthetic import write_battery_pv_dataset
@@ -107,12 +109,24 @@ def test_rollout_districts_hour_rbc_matches_jax(dataset, central):
 
 
 def test_unsupported_configuration_raises(dataset):
-    (cfg, params), _ = _both(dataset, "default", False)
+    """The float64 parity mode, once refused here, packs and steps on the
+    stepped path (the JAX package's parity episodes are held against it in
+    ``test_torch_parity_f64.py``), while the whole-episode kernel path
+    (K1's) refuses it."""
+    cfg, params, _ = pack(compile_schema(dataset, episode_time_steps=S + 1), device="cpu",
+                          param_dtype=torch.float64)
+    assert cfg.parity_f64
+    assert params.battery.capacity.dtype == params.series.non_shiftable_load.dtype == torch.float64
     states = rollout.batched_initial_states(cfg, params, 1, device="cpu")
-    parity = dataclasses.replace(cfg, parity_f64=True)
-    with pytest.raises(NotImplementedError, match="parity_f64"):
-        rollout.rollout_districts(parity, params, states, 2, rollout.hour_rbc_policy(RBC),
-                                  device="cpu")
+    final, out = rollout.rollout_districts(cfg, params, states, 2, rollout.hour_rbc_policy(RBC),
+                                           device="cpu")
+    assert out["reward_sum"].dtype == final.battery_soc.dtype == torch.float64
+    assert torch.isfinite(out["reward_sum"]).all() and int(final.t[0]) == 2
+    with pytest.raises(ValueError, match="parity_f64"):
+        run_battery_episode(cfg, params, 1, RBC, device="cpu")
+    with pytest.raises(ValueError, match="parity_f64"):
+        evaluate_scripted(cfg, params, ScriptedPolicy({"electrical_storage": RBC}),
+                          device="cpu")
 
 
 @pytest.mark.parametrize("central", [False, True])

@@ -80,7 +80,7 @@ def test_pack_equals_jax(datasets, heating):
     assert layout.union_names == jlayout.union_names
     carried = flatten(params_from_numpy(jax_leaves(jparams), device="cpu"))
     ours = flatten(params)
-    assert set(ours) == set(carried) and len(ours) == 61
+    assert set(ours) == set(carried) and len(ours) == 69
     for k, v in ours.items():
         assert v.dtype == carried[k].dtype, k
         np.testing.assert_array_equal(v.numpy(), carried[k].numpy(), err_msg=k)
