@@ -3,7 +3,9 @@
 battery+PV district's evaluation (kernel K1) and training (K2), the
 thermal-storage district's evaluation (K3), the EV district's (K4), the
 LSTM-dynamics district's (K5) and the neighborhood districts' (K6 and the
-post-pass P6), then training on every family and batched MARLISA.
+post-pass P6), then training on every family and batched MARLISA, the Gym
+env, and last the user's entry point, ``citylearn_tpu_torch.cli``, with the
+host-loop agents.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -165,6 +167,27 @@ Phases, each of which raises on failure:
      env steps/s and the share of a step spent outside ``district_step``
      per family; then 168 battery+PV steps in the float64 parity mode on
      the card against the same steps on the CPU, within 1e-6 of scale.
+ 29. the CLI and the host-loop agents on the card, through ``cli.main`` in
+     the process on named datasets that the dataset catalog resolves from
+     the run's data root (``CITYLEARN_DATA_ROOT``; phases 26-29 share one
+     write of each family): (a) ``simulate <name> evaluate`` on each
+     family with and without ``--fast`` (battery+PV over the whole year
+     with BasicRBC, thermal with OptimizedRBC, EV with the EV reference
+     controller and LSTM with BasicRBC over 168 steps, EULP over 48 and
+     quebec over 168 with BasicRBC): each ``--fast`` run launches its
+     family's kernel exactly once (K6 and P6 once each on EULP and
+     quebec) and the stepped run none; the fast pivot against the stepped
+     one within 2e-5 of scale (the discomfort and resilience KPIs of the
+     dynamics districts within 2 steps in 168), the fast run's
+     kernel-recorded time series against the same columns of the stepped
+     run, the seconds of each and the speed-up; (b) ``simulate train``
+     with ``citylearn.agents.sac.SAC`` on battery+PV at the JAX package's
+     defaults (hidden 256x256, batch 256, 2 updates a step) over 336 steps,
+     standardized and exploring until step 168, ``--save_agent``, then
+     ``simulate evaluate -fa <pickle>``: finite weights that moved, a
+     finite table, ms a step before and after the updates start; (c)
+     ``MARLISA`` on battery+PV over 48 steps with the numpy PCA and
+     regression, its coordinated policy from step 41.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -176,7 +199,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -218,7 +243,9 @@ from citylearn_tpu_torch.synthetic import (
     write_neighborhood_dataset,
     write_thermal_dataset,
 )
+from citylearn_tpu_torch import cli
 from citylearn_tpu_torch import train as train_module
+from citylearn_tpu_torch.agents import sac
 from citylearn_tpu_torch.envs import environment
 from citylearn_tpu_torch.envs.environment import CityLearnEnv
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
@@ -302,11 +329,66 @@ ENV_STEPS = {"battery": None, "thermal": SHORT_STEPS, "ev": SHORT_STEPS, "lstm":
 TOL_ENV = 2e-5
 PARITY_STEPS = 168
 TOL_PARITY = 1e-6
+# phase 29: ``simulate`` through cli.main; family -> (agent, steps, None:
+# the whole year), as phase 28 steps them
+CLI_FAMILIES = {
+    "battery": ("citylearn.agents.rbc.BasicRBC", None),
+    "thermal": ("citylearn.agents.rbc.OptimizedRBC", SHORT_STEPS),
+    "ev": ("citylearn.agents.rbc.BasicElectricVehicleRBC_ReferenceController", SHORT_STEPS),
+    "lstm": ("citylearn.agents.rbc.BasicRBC", SHORT_STEPS),
+    "eulp": ("citylearn.agents.rbc.BasicRBC", EULP_TABLE_STEPS),
+    "quebec": ("citylearn.agents.rbc.BasicRBC", SHORT_STEPS),
+}
+# the host-loop SAC at the JAX package's defaults (agents/rlc.py), its
+# replay standardized and its exploration ended half way
+CLI_SAC_STEPS = 336
+CLI_SAC = dict(hidden_dimension=[256, 256], batch_size=256, update_per_time_step=2,
+               standardize_start_time_step=168, end_exploration_time_step=168)
+# MARLISA over 48 steps: the regression from step 4, so that its PCA of
+# 29 features finds 32 replay rows (the first at step 6) by step 37, and
+# the coordinated policy from step 41
+CLI_MARLISA_STEPS = 48
+CLI_MARLISA = dict(batch_size=32, start_regression_time_step=4, standardize_start_time_step=32,
+                   end_exploration_time_step=40)
 # KPIs that are NaN by the reference's semantics on data with no occupants
 # and no outage (a proportion of zero occupied or zero outage steps)
 NAN_KPIS = {"discomfort_proportion", "discomfort_cold_proportion",
             "discomfort_hot_proportion", "one_minus_thermal_resilience_proportion",
             "power_outage_normalized_unserved_energy_total"}
+
+
+#: family -> writer of its seeded dataset into a directory; phases 26-29
+#: share one write of each (:func:`named_dataset`)
+FAMILY_WRITERS = {
+    "battery": lambda d: write_battery_pv_dataset(d, N_BUILDINGS, N_ROWS, SEED),
+    "thermal": lambda d: write_thermal_dataset(d, THERMAL_BUILDINGS, N_ROWS, SEED),
+    "ev": lambda d: write_ev_dataset(d, *EV_SHAPE, N_ROWS, SEED),
+    "lstm": lambda d: write_lstm_dataset(d, n_rows=N_ROWS, seed=SEED),
+    "eulp": lambda d: write_neighborhood_dataset(d, EULP_BUILDINGS, N_ROWS, SEED),
+    "quebec": lambda d: write_neighborhood_dataset(d, QUEBEC_BUILDINGS, N_ROWS, SEED,
+                                                   quebec=True),
+}
+DATASET_PREFIX = "smoke_"     # the named datasets' directories: smoke_<family>
+_DATA_ROOT = []               # the run's data root, a TemporaryDirectory made on first use
+
+
+def data_root() -> str:
+    if not _DATA_ROOT:
+        _DATA_ROOT.append(tempfile.TemporaryDirectory())
+    return _DATA_ROOT[0].name
+
+
+def named_dataset(family: str) -> str:
+    """The schema path of ``family``'s seeded dataset, the directory
+    ``smoke_<family>`` of the run's data root, written on first use."""
+    d = os.path.join(data_root(), DATASET_PREFIX + family)
+    path = os.path.join(d, "schema.json")
+    if not os.path.isfile(path):
+        os.makedirs(d, exist_ok=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")           # the quebec trees are absent
+            path = FAMILY_WRITERS[family](d)
+    return path
 
 
 def basic_rbc_table():
@@ -1489,26 +1571,18 @@ def family_training(dev, results):
     districts, each on the per-step collect."""
     phase("26. training on the families")
     t_phase = time.perf_counter()
-    B_ev, C, V, W = EV_SHAPE
-    families = (
-        ("thermal", lambda tmp: write_thermal_dataset(tmp, THERMAL_BUILDINGS, N_ROWS, SEED),
-         thermal_rbc_tables()),
-        ("ev", lambda tmp: write_ev_dataset(tmp, B_ev, C, V, W, N_ROWS, SEED), ev_plans(C)),
-        ("lstm", lambda tmp: write_lstm_dataset(tmp, n_rows=N_ROWS, seed=SEED), lstm_plans()),
-        ("eulp", lambda tmp: write_neighborhood_dataset(tmp, EULP_BUILDINGS, N_ROWS, SEED),
-         neighborhood_plans()),
-        ("quebec", lambda tmp: write_neighborhood_dataset(tmp, QUEBEC_BUILDINGS, N_ROWS, SEED,
-                                                          quebec=True),
-         neighborhood_plans()))
+    families = (("thermal", thermal_rbc_tables()), ("ev", ev_plans(EV_SHAPE[1])),
+                ("lstm", lstm_plans()), ("eulp", neighborhood_plans()),
+                ("quebec", neighborhood_plans()))
     kernels_of = {"thermal": (k3.thermal_episode,), "ev": (k4.ev_episode,),
                   "lstm": (k5.lstm_episode,),
                   "neighborhood": (k6.neighborhood_episode, p6.postpass_kernel)}
-    for name, write, plans in families:
+    for name, plans in families:
         t0 = time.perf_counter()
         n = FAMILY_D[name]
-        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        with warnings.catch_warnings():
             warnings.simplefilter("ignore")           # the quebec trees are absent
-            tr = BatchedSAC(write(tmp), TrainConfig(
+            tr = BatchedSAC(named_dataset(name), TrainConfig(
                 warmup_steps=FAMILY_WARMUP, **dict(TRAIN, n_districts=n, replay_capacity=n * 64)),
                 random_seed=SEED, episode_time_steps=TRAIN_EPISODE, device=dev)
         set_up_s = time.perf_counter() - t0
@@ -1556,11 +1630,10 @@ def marlisa_training(dev, results):
     """Phase 27: ``BatchedMARLISA`` on the battery+PV district."""
     phase(f"27. batched MARLISA at D={D}")
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        tr = BatchedMARLISA(write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED),
-                            TrainConfig(warmup_steps=FAMILY_WARMUP, **TRAIN), random_seed=SEED,
-                            regression_update_every=MARLISA_EVERY,
-                            episode_time_steps=TRAIN_EPISODE, device=dev)
+    tr = BatchedMARLISA(named_dataset("battery"),
+                        TrainConfig(warmup_steps=FAMILY_WARMUP, **TRAIN), random_seed=SEED,
+                        regression_update_every=MARLISA_EVERY,
+                        episode_time_steps=TRAIN_EPISODE, device=dev)
     if tr.use_kernel_collect:
         raise AssertionError("MARLISA took the kernel collect")
     w0 = tr.base_state.nets.policy.mean_w.detach().clone()
@@ -1650,30 +1723,22 @@ def env_path(dev, results):
     its kernel's table, steps/s, and the parity mode against the CPU."""
     phase("28. the Gym env on the card")
     t_phase = time.perf_counter()
-    B_ev, C, V, W = EV_SHAPE
     families = (
-        ("battery", lambda tmp: write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED),
-         {"electrical_storage": basic_rbc_table()}, (k1.battery_episode,)),
-        ("thermal", lambda tmp: write_thermal_dataset(tmp, THERMAL_BUILDINGS, N_ROWS, SEED),
-         thermal_rbc_tables(), (k3.thermal_episode,)),
-        ("ev", lambda tmp: write_ev_dataset(tmp, B_ev, C, V, W, N_ROWS, SEED), ev_plans(C),
-         (k4.ev_episode,)),
-        ("lstm", lambda tmp: write_lstm_dataset(tmp, n_rows=N_ROWS, seed=SEED), lstm_plans(),
-         (k5.lstm_episode,)),
-        ("eulp", lambda tmp: write_neighborhood_dataset(tmp, EULP_BUILDINGS, N_ROWS, SEED),
-         neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)),
-        ("quebec", lambda tmp: write_neighborhood_dataset(tmp, QUEBEC_BUILDINGS, N_ROWS, SEED,
-                                                          quebec=True),
-         neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)))
+        ("battery", {"electrical_storage": basic_rbc_table()}, (k1.battery_episode,)),
+        ("thermal", thermal_rbc_tables(), (k3.thermal_episode,)),
+        ("ev", ev_plans(EV_SHAPE[1]), (k4.ev_episode,)),
+        ("lstm", lstm_plans(), (k5.lstm_episode,)),
+        ("eulp", neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)),
+        ("quebec", neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)))
     shipped_step = environment.district_step
     launched = {}
-    for name, write, tables, kernels in families:
+    for name, tables, kernels in families:
         t0 = time.perf_counter()
         rows_of_episode = N_ROWS if ENV_STEPS[name] is None else ENV_STEPS[name] + 1
-        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        with warnings.catch_warnings():
             warnings.simplefilter("ignore")           # the quebec trees are absent
-            schema = write(tmp)
-            env = CityLearnEnv(schema, episode_time_steps=rows_of_episode, device=dev)
+            env = CityLearnEnv(named_dataset(name), episode_time_steps=rows_of_episode,
+                               device=dev)
         set_up_s = time.perf_counter() - t0
         cfg, params = env.cfg, env.params
         S = cfg.time_steps - 1
@@ -1733,10 +1798,8 @@ def env_path(dev, results):
         del env
 
     # the float64 parity mode: the card against the CPU on the same steps
-    with tempfile.TemporaryDirectory() as tmp:
-        schema = write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED)
-        envs = [CityLearnEnv(schema, episode_time_steps=PARITY_STEPS + 1, parity_f64=True,
-                             device=d) for d in (dev, "cpu")]
+    envs = [CityLearnEnv(named_dataset("battery"), episode_time_steps=PARITY_STEPS + 1,
+                         parity_f64=True, device=d) for d in (dev, "cpu")]
     rng = torch.Generator().manual_seed(SEED)
     obs = [[env.reset()[0]] for env in envs]
     rewards = [[], []]
@@ -1775,6 +1838,211 @@ def env_path(dev, results):
     results.update(env_parity_max_error=errors[worst], env_parity_kpi_error=kpi_err,
                    env_yardstick_launches=launched, env_s=time.perf_counter() - t_phase)
     print(f"phase 28: yardstick launches {launched}; {results['env_s']:.1f} s; {nvidia_smi()}")
+
+
+def cli_env_kwargs(**kw) -> str:
+    """``--env_kwargs`` of a CLI run: the card is the CLI's own default."""
+    if DEVICE != "cuda":
+        kw["device"] = DEVICE
+    return json.dumps(kw)
+
+
+def cli_run(out, sid, *argv):
+    """``cli.main`` once, in the process; (its summary JSON, its seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["simulate", *argv, "-d", out, "-id", sid])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mode = "train" if "train" in argv else "evaluation"
+    with open(os.path.join(out, f"{sid}-{mode}.json")) as f:
+        return json.load(f), seconds
+
+
+def pivot_error(fast, stepped, comfort_steps, steps):
+    """Largest error of a fast pivot against the stepped one, relative to
+    max(|value|, 1); raises beyond ``TOL_ENV`` (the discomfort and
+    resilience KPIs may also move by ``comfort_steps`` steps in ``steps``).
+    None must meet None."""
+    if set(fast) != set(stepped):
+        raise AssertionError(f"fast and stepped pivots differ in KPIs: "
+                             f"{sorted(set(fast) ^ set(stepped))}")
+    worst = worst_comfort = 0.0
+    for kpi, cols in stepped.items():
+        comfort = comfort_steps and kpi.startswith(("discomfort", "one_minus_thermal_resilience"))
+        tol = TOL_ENV + (comfort_steps / steps if comfort else 0.0)
+        for name, w in cols.items():
+            v = fast[kpi].get(name, "absent")
+            if (v is None) != (w is None) or v == "absent":
+                raise AssertionError(f"fast pivot {kpi}/{name} {v} against stepped {w}")
+            if w is None:
+                continue
+            err = abs(v - w) / max(abs(w), 1.0)
+            if not err <= tol:
+                raise AssertionError(f"fast pivot {kpi}/{name} {v} against stepped {w}: {err}")
+            if comfort:
+                worst_comfort = max(worst_comfort, err)
+            else:
+                worst = max(worst, err)
+    return worst, worst_comfort
+
+
+def series_error(fast, stepped, dynamics):
+    """Largest error of the fast run's kernel-recorded columns against the
+    same columns of the stepped run, relative to each column's scale
+    (max(|value|, 1)); the indoor temperature of the dynamics districts
+    within K5's tolerance, 2e-4 |T| + 5e-3 C. Raises beyond."""
+    worst = 0.0
+    for b, cols in fast.items():
+        for c, v in cols.items():
+            a = torch.tensor(v, dtype=torch.float64)
+            r = torch.tensor(stepped[b][c], dtype=torch.float64)
+            if a.shape != r.shape:
+                raise AssertionError(f"{b}/{c}: fast {tuple(a.shape)} against stepped "
+                                     f"{tuple(r.shape)}")
+            diff = (a - r).abs()
+            if dynamics and c == "indoor_dry_bulb_temperature":
+                if not bool((diff <= 2e-4 * r.abs() + 5e-3).all()):
+                    raise AssertionError(f"{b}/{c}: fast against stepped {float(diff.max())} C")
+                continue
+            err = float(diff.max()) / max(1.0, float(r.abs().max()))
+            if not err <= TOL_ENV:
+                raise AssertionError(f"{b}/{c}: fast against stepped {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def cli_path(dev, results):
+    """Phase 29: ``simulate`` through ``cli.main`` on the card: each family
+    evaluated with and without ``--fast``, SAC trained, saved, reloaded and
+    evaluated, and MARLISA."""
+    phase("29. the CLI and the host-loop agents on the card")
+    t_phase = time.perf_counter()
+    for family in CLI_FAMILIES:
+        named_dataset(family)
+    os.environ["CITYLEARN_DATA_ROOT"] = data_root()
+    wrappers = {"battery": (k1.battery_episode,), "thermal": (k3.thermal_episode,),
+                "ev": (k4.ev_episode,), "lstm": (k5.lstm_episode,),
+                "eulp": (k6.neighborhood_episode, p6.postpass_kernel),
+                "quebec": (k6.neighborhood_episode, p6.postpass_kernel)}
+    every = sorted({w for ws in wrappers.values() for w in ws}, key=lambda w: w.__name__)
+    launched = {w.__name__: 0 for w in every}
+    with tempfile.TemporaryDirectory() as out:
+        # (a) evaluate with and without --fast
+        for family, (agent, steps) in CLI_FAMILIES.items():
+            name = DATASET_PREFIX + family
+            rows = N_ROWS if steps is None else steps + 1
+            args = [name, "evaluate", "-a", agent, "-k", cli_env_kwargs(episode_time_steps=rows)]
+            summaries, seconds, counts = {}, {}, {}
+            for fast in (True, False):
+                for w in every:
+                    w.launches = 0
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")           # the quebec trees are absent
+                    summaries[fast], seconds[fast] = cli_run(
+                        out, f"{family}-{'fast' if fast else 'stepped'}",
+                        *args, *(["--fast"] if fast else []))
+                counts[fast] = {w.__name__: w.launches for w in every}
+            want = {w.__name__: int(w in wrappers[family]) for w in every}
+            if counts[True] != want:
+                raise AssertionError(f"{family}: --fast launched {counts[True]}, not {want}")
+            if any(counts[False].values()):
+                raise AssertionError(f"{family}: the stepped run launched {counts[False]}")
+            for k, n in counts[True].items():
+                launched[k] += n
+            dynamics = family in ("lstm", "eulp", "quebec")
+            S = rows - 1
+            worst, worst_comfort = pivot_error(summaries[True]["kpis"], summaries[False]["kpis"],
+                                               COMFORT_STEPS if dynamics else 0, S)
+            series = series_error(summaries[True]["time_series"],
+                                  summaries[False]["time_series"], dynamics)
+            speed_up = seconds[False] / seconds[True]
+            results.update({f"cli_{family}_fast_s": seconds[True],
+                            f"cli_{family}_stepped_s": seconds[False],
+                            f"cli_{family}_speed_up": speed_up,
+                            f"cli_{family}_pivot_error": worst,
+                            f"cli_{family}_comfort_error": worst_comfort,
+                            f"cli_{family}_series_error": series})
+            print(f"{family}: {agent.rsplit('.', 1)[1]}, {S} steps; evaluate --fast "
+                  f"{seconds[True]:.2f} s (launches {counts[True]}), stepped {seconds[False]:.2f} "
+                  f"s: {speed_up:.1f}x; pivot error {worst:.3e}"
+                  + (f", discomfort and resilience {worst_comfort:.3e}" if dynamics else "")
+                  + f"; kernel-recorded series error {series:.3e} (tolerance {TOL_ENV:g})")
+
+        # (b) SAC: train with updates, save, reload and evaluate
+        rows = CLI_SAC_STEPS + 1
+        stamps, w0 = [], []
+        shipped_update = sac.SAC.update
+
+        def timed_update(agent, *args, **kw):
+            if not w0:
+                w0.extend(p.detach().clone() for p in agent.nets[0].policy.parameters())
+            out_ = shipped_update(agent, *args, **kw)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return out_
+
+        sac.SAC.update = timed_update
+        try:
+            train, train_s = cli_run(out, "sac", "smoke_battery", "train", "-a",
+                                     "citylearn.agents.sac.SAC", "-k",
+                                     cli_env_kwargs(episode_time_steps=rows), "-ak",
+                                     json.dumps(CLI_SAC), "-rs", str(SEED), "--save_agent")
+        finally:
+            sac.SAC.update = shipped_update
+        with open(os.path.join(out, "sac-agent.pkl"), "rb") as f:
+            agent = pickle.load(f)
+        first = CLI_SAC["batch_size"] - 1     # the first step whose update trains
+        if not (agent.time_step == CLI_SAC_STEPS and all(agent.normalized)
+                and len(stamps) == CLI_SAC_STEPS):
+            raise AssertionError(f"SAC: {agent.time_step} steps, {len(stamps)} updates timed, "
+                                 f"normalized {agent.normalized}")
+        weights = list(agent.nets[0].policy.parameters())
+        moved = max(float((p.detach() - q).abs().max()) for p, q in zip(weights, w0))
+        finite = all(bool(torch.isfinite(p).all()) for n in agent.nets
+                     for p in n.policy.parameters())
+        if not (finite and moved > 0):
+            raise AssertionError(f"SAC: weights finite {finite}, moved by {moved}")
+        steps_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+        explore_ms = sum(steps_ms[:first - 1]) / (first - 1)
+        update_ms = sum(steps_ms[first - 1:]) / len(steps_ms[first - 1:])
+        evaluation, eval_s = cli_run(out, "sac-eval", "smoke_battery", "evaluate", "-fa",
+                                     os.path.join(out, "sac-agent.pkl"), "-k",
+                                     cli_env_kwargs(episode_time_steps=rows))
+        values = [v for cols in evaluation["kpis"].values() for v in cols.values()]
+        if not (len(values) > 20 and all(v is None or math.isfinite(v) for v in values)):
+            raise AssertionError("SAC: the evaluation table is not finite")
+        results.update(cli_sac_train_s=train_s, cli_sac_explore_ms=explore_ms,
+                       cli_sac_update_ms=update_ms, cli_sac_evaluate_s=eval_s)
+        print(f"SAC: hidden {CLI_SAC['hidden_dimension']}, batch {CLI_SAC['batch_size']}, "
+              f"{CLI_SAC['update_per_time_step']} updates a step and agent, {CLI_SAC_STEPS} "
+              f"steps in {train_s:.2f} s: {explore_ms:.2f} ms a step before the updates start "
+              f"(step {first}), {update_ms:.2f} ms after; policy moved by {moved:.3e}; saved, "
+              f"reloaded and evaluated over {CLI_SAC_STEPS} steps in {eval_s:.2f} s, "
+              f"cost_total {evaluation['kpis']['cost_total']['District']:.6f}")
+
+        # (c) MARLISA with the numpy PCA and regression
+        _, marlisa_s = cli_run(out, "marlisa", "smoke_battery", "train", "-a",
+                               "citylearn.agents.marlisa.MARLISA", "-k",
+                               cli_env_kwargs(episode_time_steps=CLI_MARLISA_STEPS + 1), "-ak",
+                               json.dumps(CLI_MARLISA), "-rs", str(SEED), "--save_agent")
+        with open(os.path.join(out, "marlisa-agent.pkl"), "rb") as f:
+            agent = pickle.load(f)
+        fitted = all(agent.pca_flag) and all(
+            math.isfinite(float(abs(e.coef_).max())) for e in agent.state_estimator)
+        if not (fitted and agent.time_step == CLI_MARLISA_STEPS):
+            raise AssertionError(f"MARLISA: PCA {agent.pca_flag}, {agent.time_step} steps")
+        results.update(cli_marlisa_s=marlisa_s,
+                       cli_marlisa_ms=marlisa_s * 1e3 / CLI_MARLISA_STEPS)
+        print(f"MARLISA: {CLI_MARLISA_STEPS} steps in {marlisa_s:.2f} s "
+              f"({marlisa_s * 1e3 / CLI_MARLISA_STEPS:.1f} ms a step), the regression from step "
+              f"{CLI_MARLISA['start_regression_time_step']}, the PCA of "
+              f"{agent.pca[0].n_components_} components and the first updates at step "
+              f"{CLI_MARLISA['start_regression_time_step'] + 1 + CLI_MARLISA['batch_size']}, "
+              f"the coordinated policy from step {CLI_MARLISA['end_exploration_time_step'] + 1}")
+    results.update(cli_launches=launched, cli_s=time.perf_counter() - t_phase)
+    print(f"phase 29: launches {launched}; {results['cli_s']:.1f} s; {nvidia_smi()}")
+    return launched
 
 
 def main(json_path=None):
@@ -2087,6 +2355,7 @@ def main(json_path=None):
     family_training(dev, results)
     marlisa_training(dev, results)
     env_path(dev, results)
+    cli_launches = cli_path(dev, results)
 
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",
@@ -2103,6 +2372,11 @@ def main(json_path=None):
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
         "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels]}
+    # the main path's launches of phase 29 beside each row's own
+    row_of = {"postpass_kernel": "neighborhood_postpass"}
+    for row in kernels["kernels"]:
+        row["launches"] += sum(n for k, n in cli_launches.items()
+                               if row_of.get(k, k) == row["name"])
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if json_path:

@@ -34,6 +34,15 @@ views (``envs.views``), CSV renderer (``envs.render``), episode splits
 mode (``parity_f64=True``) that tracks the reference's float64 arithmetic
 and float32 stores.
 
+The user's entry point runs on it: ``cli`` (``simulate <schema or
+dataset name> train|evaluate [--fast]``, ``list_datasets``; ``--fast``
+evaluates an open-loop agent's episode as one launch of the family's
+kernel), the dataset catalog ``data.DataSet`` (local roots only), the
+host-loop agents of ``agents`` (rule-based, SAC, tabular Q-learning,
+MARLISA), the observation encoders of ``preprocessing`` and the Gym
+wrappers of ``wrappers``. Without gymnasium the env's spaces are
+``spaces.Box``.
+
 The package imports ``torch`` and never ``jax`` nor the JAX package.
 Entry points take a ``device`` argument: ``None`` means the CUDA card,
 and raises when there is none; pass ``device="cpu"`` to run the plain

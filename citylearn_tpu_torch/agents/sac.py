@@ -13,6 +13,13 @@ target updates and Adam.
 Gaussian noise is an argument of :func:`policy_sample` and
 :func:`sac_update`, so that a caller decides where the random numbers
 come from (the trainer's per-step generators, or a test's numpy draws).
+
+The host-loop agents (reference ``citylearn/agents/sac.py``) sit on top:
+:class:`SAC` keeps one network set per building agent
+(``make_agent_nets(n_agents=1, ...)`` on the env's device) with its own
+replay ring and normalization statistics, steps the env through
+``learn`` and updates each agent with :func:`sac_update`; :class:`SACRBC`
+explores with a rule-based controller.
 """
 
 from __future__ import annotations
@@ -20,13 +27,16 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from citylearn_tpu_torch import resolve_device
+from citylearn_tpu_torch.agents.rbc import RBC, BasicRBC
+from citylearn_tpu_torch.agents.rlc import RLC
+from citylearn_tpu_torch.preprocessing import RemoveFeature, encode
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
 EPS = 1e-6
@@ -285,3 +295,198 @@ def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
             torch._foreach_mul_(t, 1 - tau)
             torch._foreach_add_(t, torch._foreach_mul(s, tau))
     return losses
+
+
+class ReplayBuffer:
+    """Ring buffer of transitions (reference ``rl.py:75-93``)."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.buffer: list = []
+        self.position = 0
+
+    def push(self, state, action, reward, next_state, done):
+        if len(self.buffer) < self.capacity:
+            self.buffer.append(None)
+        self.buffer[self.position] = (state, action, reward, next_state, done)
+        self.position = (self.position + 1) % self.capacity
+
+    def sample(self, batch_size, rng):
+        idx = rng.choice(len(self.buffer), size=batch_size, replace=False)
+        s, a, r, n, d = map(np.stack, zip(*[self.buffer[i] for i in idx]))
+        return s, a, r, n, d
+
+    def __len__(self):
+        return len(self.buffer)
+
+
+class PolicyNoise:
+    """The host-loop SAC's standard normal policy noise, from one
+    ``torch.Generator`` seeded by the agent's ``random_seed`` on its
+    device. The JAX package splits a PRNG key per draw instead; a test
+    swaps in an object with these two methods that returns its draws."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def act(self, act_dim: int) -> torch.Tensor:
+        """(1, 1, M): the noise of one action sample."""
+        return torch.randn((1, 1, act_dim), generator=self.generator, device=self.device)
+
+    def update(self, batch_size: int, act_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Two (1, N, M): the next-action and the policy-loss samples of an update."""
+        return tuple(torch.randn((1, batch_size, act_dim), generator=self.generator,
+                                 device=self.device) for _ in range(2))
+
+
+class SAC(RLC):
+    """Per-building soft actor-critic agents stepping the env from the
+    host (reference ``citylearn/agents/sac.py``): twin soft-Q networks
+    with LayerNorm, a tanh-Gaussian policy, replay standardization from
+    ``standardize_start_time_step`` and ``action_scaling_coefficient``-scaled
+    uniform exploration until ``end_exploration_time_step``.
+
+    Exploration actions and replay batches come from ``self._np_random``
+    (``np.random.RandomState(random_seed)``) as in the JAX package, so both
+    draw the same; the policy noise comes from :class:`PolicyNoise`."""
+
+    def __init__(self, env, **kwargs: Any):
+        super().__init__(env, **kwargs)
+        n = len(self.action_space)
+        self.time_step = 0
+        self.normalized = [False] * n
+        self.replay_buffer = [ReplayBuffer(self.replay_buffer_capacity) for _ in range(n)]
+        self.norm_mean = [None] * n
+        self.norm_std = [None] * n
+        self.r_norm_mean = [None] * n
+        self.r_norm_std = [None] * n
+        self.device = env.device
+        self.noise = PolicyNoise(self.random_seed, self.device)
+        self.nets: List[AgentNets] = []
+        self.action_scale: List[torch.Tensor] = []
+        self.action_bias: List[torch.Tensor] = []
+        self.set_networks()
+
+    def set_encoders(self):
+        encoders = super().set_encoders()
+        for i, names in enumerate(self.observation_names):
+            for j, n in enumerate(names):
+                if n == "net_electricity_consumption":
+                    encoders[i][j] = RemoveFeature()
+        return encoders
+
+    def set_networks(self, internal_observation_count: int = 0):
+        """One network set per agent, initialised from the noise's generator."""
+        self.nets, self.action_scale, self.action_bias = [], [], []
+        for i, space in enumerate(self.action_space):
+            obs_dim = self.observation_dimension[i] + internal_observation_count
+            self.nets.append(make_agent_nets(1, obs_dim, space.shape[0], self.hidden_dimension,
+                                             self.lr, self.noise.generator, self.device))
+            coef = self.action_scaling_coefficient
+            scale = coef * (space.high - space.low) / 2.0
+            bias = coef * (space.high + space.low) / 2.0
+            self.action_scale.append(torch.tensor(np.asarray(scale, np.float32)[None],
+                                                  device=self.device))
+            self.action_bias.append(torch.tensor(np.asarray(bias, np.float32)[None],
+                                                 device=self.device))
+
+    # ------------------------------------------------------------------
+    def update(self, observations, actions, reward, next_observations,
+               terminated: bool, truncated: bool):
+        """Reference ``sac.py:56-165``."""
+        for i, (o, a, r, n) in enumerate(zip(observations, actions, reward,
+                                             next_observations)):
+            o = encode(self.encoders[i], o)
+            n = encode(self.encoders[i], n)
+            if self.normalized[i]:
+                o = self._norm_obs(i, o)
+                n = self._norm_obs(i, n)
+                r = self._norm_reward(i, r)
+            self.replay_buffer[i].push(o, np.asarray(a, float), r, n, float(terminated))
+
+            if self.time_step >= self.standardize_start_time_step \
+                    and self.batch_size <= len(self.replay_buffer[i]):
+                if not self.normalized[i]:
+                    buf = self.replay_buffer[i].buffer
+                    X = np.array([j[0] for j in buf], dtype=float)
+                    self.norm_mean[i] = np.nanmean(X, axis=0)
+                    self.norm_std[i] = np.nanstd(X, axis=0) + 1e-5
+                    R = np.array([j[2] for j in buf], dtype=float)
+                    self.r_norm_mean[i] = float(np.nanmean(R))
+                    self.r_norm_std[i] = float(np.nanstd(R)) / self.reward_scaling + 1e-5
+                    self.replay_buffer[i].buffer = [
+                        (self._norm_obs(i, o_), a_, self._norm_reward(i, r_),
+                         self._norm_obs(i, n_), d_)
+                        for o_, a_, r_, n_, d_ in buf]
+                    self.normalized[i] = True
+                self._train_agent(i)
+        self.time_step += 1
+
+    def _train_agent(self, i: int):
+        """``update_per_time_step`` SAC updates of agent ``i`` on batches
+        drawn from its replay ring."""
+        for _ in range(self.update_per_time_step):
+            batch = self.replay_buffer[i].sample(self.batch_size, self._np_random)
+            batch = tuple(torch.tensor(np.asarray(x, np.float32), device=self.device)[None]
+                          for x in batch)
+            noise = self.noise.update(self.batch_size, self.action_space[i].shape[0])
+            sac_update(self.nets[i], batch, noise, self.action_scale[i], self.action_bias[i],
+                       None, alpha=self.alpha, discount=self.discount, tau=self.tau)
+
+    def predict(self, observations, deterministic: bool = None):
+        deterministic = bool(deterministic)
+        if self.time_step > self.end_exploration_time_step or deterministic:
+            return self.get_post_exploration_prediction(observations, deterministic)
+        return self.get_exploration_prediction(observations)
+
+    def _sample_policy(self, net_index: int, i: int, obs_vec, deterministic: bool) -> list:
+        """One action of agent ``i`` from the policy of ``nets[net_index]``
+        on one encoded observation; the noise is drawn either way."""
+        noise = self.noise.act(self.action_space[i].shape[0])
+        obs = torch.tensor(np.asarray(obs_vec, np.float32), device=self.device)[None, None]
+        with torch.no_grad():
+            a, _, det = policy_sample(self.nets[net_index].policy, obs, noise,
+                                      self.action_scale[i], self.action_bias[i])
+        return list((det if deterministic else a)[0, 0].cpu().numpy())
+
+    def get_post_exploration_prediction(self, observations, deterministic):
+        actions = []
+        for i, o in enumerate(observations):
+            o = self._norm_obs(i, encode(self.encoders[i], o))
+            actions.append(self._sample_policy(i, i, o, deterministic))
+        return actions
+
+    def get_exploration_prediction(self, observations):
+        """``action_scaling_coefficient``-scaled random actions (sac.py:219-223)."""
+        return [list(self.action_scaling_coefficient * self._np_random.uniform(s.low, s.high))
+                for s in self.action_space]
+
+    def _norm_obs(self, i, o):
+        if self.norm_mean[i] is None:
+            return np.asarray(o, float)
+        return (np.asarray(o, float) - self.norm_mean[i]) / self.norm_std[i]
+
+    def _norm_reward(self, i, r):
+        if self.r_norm_mean[i] is None:
+            return r
+        return (r - self.r_norm_mean[i]) / self.r_norm_std[i]
+
+    def reset(self):
+        super().reset()
+        self.time_step = 0
+
+
+class SACRBC(SAC):
+    """SAC with RBC-guided exploration (reference ``sac.py:273-317``)."""
+
+    def __init__(self, env, rbc: Union[RBC, str, type] = None, **kwargs: Any):
+        super().__init__(env, **kwargs)
+        if rbc is None:
+            rbc = BasicRBC(env)
+        elif isinstance(rbc, type):
+            rbc = rbc(env)
+        self.rbc = rbc
+
+    def get_exploration_prediction(self, observations):
+        return self.rbc.predict(observations)

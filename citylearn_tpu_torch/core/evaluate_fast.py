@@ -80,6 +80,47 @@ class ScriptedPolicy:
                 "plan (or True to silence this warning)", stacklevel=3)
         return True
 
+    @classmethod
+    def from_hour_rbc(cls, agent, n_buildings: int, spec=None) -> "ScriptedPolicy":
+        """(24, n) plans from an :class:`citylearn_tpu_torch.agents.rbc.HourRBC`
+        agent's resolved per-building hour maps (reference
+        ``agents/rbc.py:80-136``). A central agent carries ONE name-keyed
+        map shared by every building. Pass the compiled ``spec`` to route
+        per-charger (``electric_vehicle_storage_<id>``) and
+        washing-machine hour maps onto their district-wide plan axes."""
+        plans: Dict[str, np.ndarray] = {}
+        maps = agent.action_map
+        if len(maps) == 1 and n_buildings > 1:
+            maps = maps * n_buildings           # central: shared hour map
+        ch_slot, wm_slot, n_ch, n_wm = {}, {}, 0, 0
+        if spec is not None:
+            for b in spec.buildings:
+                for ch in b.chargers:
+                    ch_slot[f"electric_vehicle_storage_{ch.charger_id}"] = n_ch
+                    n_ch += 1
+                for wm in b.washing_machines:
+                    wm_slot[wm.name] = n_wm
+                    n_wm += 1
+
+        def col_of(table):
+            return np.asarray([table[h] for h in range(1, 25)], np.float32)
+
+        for b, m in enumerate(maps):
+            for name, table in m.items():
+                if table is None:
+                    continue
+                if name in ACTION_KEYS:
+                    plan = plans.setdefault(name, np.zeros((24, n_buildings), np.float32))
+                    plan[:, b] = col_of(table)
+                elif name in ch_slot:
+                    plan = plans.setdefault("electric_vehicle_storage",
+                                            np.zeros((24, n_ch), np.float32))
+                    plan[:, ch_slot[name]] = col_of(table)
+                elif name in wm_slot:
+                    plan = plans.setdefault("washing_machine", np.zeros((24, n_wm), np.float32))
+                    plan[:, wm_slot[name]] = col_of(table)
+        return cls(plans)
+
     def expanded(self, cfg: StaticConfig, params: DistrictParams,
                  n_steps: int, data_offset: int = 0) -> Dict[str, np.ndarray]:
         """Normalize every plan to (S, n) over its target axis —

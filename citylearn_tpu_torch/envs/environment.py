@@ -19,10 +19,11 @@ caller passes ``device="cpu"``): the actions go over in one host-to-device
 copy, and every per-building series the env keeps, the reward and the
 step's extras (charger series, EV SOCs, charging headrooms, occupant
 set-point overrides) come back in ONE device-to-host copy. Observations,
-history and KPIs are then built on the host in numpy. ``gymnasium`` (the
-spaces) and ``pandas`` (the ``evaluate()`` frame) are imported only where
-they are used: without them the env resets, steps and scores
-(:meth:`CityLearnEnv.evaluate_rows`).
+history and KPIs are then built on the host in numpy. ``pandas`` (the
+``evaluate()`` frame) is imported only where it is used, and the spaces are
+gymnasium's where it imports and the port's :class:`~citylearn_tpu_torch.spaces.Box`
+where it does not: without either the env resets, steps, scores
+(:meth:`CityLearnEnv.evaluate_rows`) and serves the agents.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from citylearn_tpu_torch.core.types import DistrictParams, EnvState, StaticConfi
 from citylearn_tpu_torch.envs.episode import EpisodeTracker
 from citylearn_tpu_torch.envs.outage import building_outage_signal
 from citylearn_tpu_torch.envs.views import BuildingView, _condition_value
+from citylearn_tpu_torch.spaces import box
 
 STORAGE_ACTIONS = ("cooling_storage", "heating_storage", "dhw_storage",
                    "electrical_storage")
@@ -145,10 +147,9 @@ class CityLearnEnv:
         self.parity_f64 = bool(kwargs.pop("parity_f64", False))
         self.device = resolve_device(device)
         if isinstance(schema, str) and not os.path.exists(schema):
-            raise FileNotFoundError(
-                f"schema {schema!r} is not a file: named datasets resolve through the "
-                f"dataset catalog, which the port does not carry yet (ROADMAP.md queue 1, "
-                f"item 15); pass the path of a schema.json or a schema dict")
+            # a named dataset (reference citylearn.py:863-884)
+            from citylearn_tpu_torch.data import DataSet
+            schema = DataSet().get_schema_path(schema)
         self.spec: DistrictSpec = compile_schema(
             schema, root_directory=root_directory, central_agent=central_agent,
             episode_time_steps=episode_time_steps,
@@ -266,12 +267,24 @@ class CityLearnEnv:
         return self._district_sum("_without_storage_and_partial_load_and_pv")
 
     def load_agent(self, agent=None, **kwargs):
-        """The reference instantiates the schema-defined (or given) agent
-        on the env (``citylearn.py:1920-1971``); the port has neither the
-        host-loop agents nor the class resolver of the CLI yet."""
-        raise NotImplementedError(
-            "load_agent needs the host-loop agents (ROADMAP.md queue 1, item 13) and the "
-            "CLI's class resolver (item 15), which the port does not carry yet")
+        """Instantiate the schema-defined (or given) agent on this env
+        (reference ``citylearn.py:1920-1971``). ``agent`` may be a class, a
+        dotted path (``citylearn.agents.*`` and ``citylearn_tpu.agents.*``
+        resolve to the port's agents) or None for the schema's ``agent``
+        block."""
+        from citylearn_tpu_torch.cli import DEFAULT_AGENT, resolve_class
+        attributes = dict(kwargs)
+        if agent is None:
+            block = (self.spec.schema or {}).get("agent") or {}
+            agent_type = block.get("type", DEFAULT_AGENT)
+            attrs = dict(block.get("attributes") or {})
+            attrs.update(attributes)
+            attributes = attrs
+        elif isinstance(agent, str):
+            agent_type = agent
+        else:
+            agent_type = f"{agent.__module__}.{agent.__name__}"
+        return resolve_class(agent_type)(self, **attributes)
 
     @property
     def time_step(self) -> int:
@@ -311,7 +324,6 @@ class CityLearnEnv:
 
     @property
     def observation_space(self):
-        from gymnasium import spaces as gym_spaces
         lows, highs = [], []
         for b in self.spec.buildings:
             lows.append(np.array([b.observation_low[k] for k in b.active_observations],
@@ -319,23 +331,18 @@ class CityLearnEnv:
             highs.append(np.array([b.observation_high[k] for k in b.active_observations],
                                   dtype=np.float32))
         if self.central_agent:
-            lo, hi = self._dedup_central(lows, highs)
-            return [gym_spaces.Box(low=lo, high=hi, dtype=np.float32)]
-        return [gym_spaces.Box(low=l, high=h, dtype=np.float32)
-                for l, h in zip(lows, highs)]
+            return [box(*self._dedup_central(lows, highs))]
+        return [box(l, h) for l, h in zip(lows, highs)]
 
     @property
     def action_space(self):
-        from gymnasium import spaces as gym_spaces
         if self.central_agent:
             lo = np.concatenate([np.asarray(b.action_low, np.float32)
                                  for b in self.spec.buildings])
             hi = np.concatenate([np.asarray(b.action_high, np.float32)
                                  for b in self.spec.buildings])
-            return [gym_spaces.Box(low=lo, high=hi, dtype=np.float32)]
-        return [gym_spaces.Box(low=np.asarray(b.action_low, np.float32),
-                               high=np.asarray(b.action_high, np.float32),
-                               dtype=np.float32)
+            return [box(lo, hi)]
+        return [box(np.asarray(b.action_low, np.float32), np.asarray(b.action_high, np.float32))
                 for b in self.spec.buildings]
 
     def _dedup_central(self, lows, highs):

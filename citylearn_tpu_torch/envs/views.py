@@ -27,6 +27,7 @@ from typing import TYPE_CHECKING, List
 import numpy as np
 
 from citylearn_tpu_torch.compiler.spaces import _hvac_input_power_np, heat_pump_cop_np
+from citylearn_tpu_torch.spaces import box
 
 if TYPE_CHECKING:  # pragma: no cover
     from citylearn_tpu_torch.envs.environment import CityLearnEnv
@@ -581,21 +582,17 @@ class BuildingView(_SpecDelegate):
 
     @property
     def observation_space(self):
-        from gymnasium import spaces as gym_spaces
         b = self._spec
         lo = np.array([b.observation_low[k] for k in b.active_observations],
                       np.float32)
         hi = np.array([b.observation_high[k] for k in b.active_observations],
                       np.float32)
-        return gym_spaces.Box(low=lo, high=hi, dtype=np.float32)
+        return box(lo, hi)
 
     @property
     def action_space(self):
-        from gymnasium import spaces as gym_spaces
         b = self._spec
-        return gym_spaces.Box(low=np.asarray(b.action_low, np.float32),
-                              high=np.asarray(b.action_high, np.float32),
-                              dtype=np.float32)
+        return box(np.asarray(b.action_low, np.float32), np.asarray(b.action_high, np.float32))
 
     def __repr__(self):
         return f"BuildingView({self._spec.name!r})"

@@ -21,6 +21,7 @@ products sum in another order); 2e-5 relative between the env's table and
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -116,12 +117,27 @@ def test_env_table_matches_evaluate_districts(schemas, family):
     assert checked > 50
 
 
-def test_named_dataset_and_load_agent_raise(schemas):
-    with pytest.raises(FileNotFoundError, match="item 15"):
-        CityLearnEnv("citylearn_challenge_2022_phase_1", device="cpu")
-    env = CityLearnEnv(schemas["battery"], episode_time_steps=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="items? 13"):
-        env.load_agent()
+def test_named_dataset_and_load_agent_raise(schemas, tmp_path, monkeypatch):
+    """A name in no root raises, listing the roots, and downloads nothing;
+    a name under ``CITYLEARN_DATA_ROOT`` resolves to its schema; and
+    ``load_agent`` builds the schema's agent, a named one or a class,
+    with ``citylearn.*`` and ``citylearn_tpu.*`` paths on the port's
+    agents."""
+    monkeypatch.setenv("CITYLEARN_DATA_ROOT", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="none of the roots"):
+        CityLearnEnv("no_such_dataset", device="cpu")
+    os.symlink(os.path.dirname(schemas["battery"]), tmp_path / "battery_named")
+    env = CityLearnEnv("battery_named", episode_time_steps=5, device="cpu")
+    assert env.spec.buildings[0].name == \
+        CityLearnEnv(schemas["battery"], device="cpu").spec.buildings[0].name
+    from citylearn_tpu_torch.agents import BaselineAgent, BasicRBC, OptimizedRBC
+    assert type(env.load_agent("citylearn.agents.rbc.BasicRBC")) is BasicRBC
+    assert type(env.load_agent("citylearn_tpu.agents.rbc.OptimizedRBC")) is OptimizedRBC
+    assert type(env.load_agent(BasicRBC)) is BasicRBC
+    # the synthetic schema names the reference's BaselineAgent
+    assert env.spec.schema["agent"]["type"] == "citylearn.agents.base.BaselineAgent"
+    agent = env.load_agent()
+    assert type(agent) is BaselineAgent and agent.env is env
 
 
 def test_default_device_raises_without_card(schemas):
@@ -132,21 +148,34 @@ def test_default_device_raises_without_card(schemas):
 
 
 def test_runs_without_gymnasium_and_pandas(schemas):
-    """With gymnasium and pandas unimportable the env still resets, steps
-    and scores; only the spaces and the frame need them."""
+    """With gymnasium and pandas unimportable the env still resets, steps,
+    scores and serves its spaces (the port's ``Box``, with the bounds
+    gymnasium's would have); only the ``evaluate()`` frame needs pandas."""
     code = (
         "import sys; sys.modules['gymnasium'] = None; sys.modules['pandas'] = None\n"
+        "import numpy as np\n"
         "from citylearn_tpu_torch import CityLearnEnv\n"
+        "from citylearn_tpu_torch.spaces import Box\n"
         f"env = CityLearnEnv({schemas['ev']!r}, episode_time_steps=12, device='cpu')\n"
         "obs, _ = env.reset()\n"
         "acts = [[0.5] * len(b.active_actions) for b in env.spec.buildings]\n"
         "while not env.terminated: obs, r, *_ = env.step(acts)\n"
         "rows = env.evaluate_rows()\n"
-        "try:\n    env.action_space\nexcept ImportError:\n    print('no spaces')\n"
+        "spaces = env.observation_space + env.action_space + [env.buildings[0].action_space]\n"
+        "print(all(type(s) is Box for s in spaces))\n"
+        "np.save(sys.argv[1], np.concatenate([np.concatenate([s.low, s.high]) for s in spaces]))\n"
         "try:\n    env.evaluate()\nexcept ImportError:\n    print('no frame')\n"
         "print(len(rows), rows[0]['name'])\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, cwd=os.path.dirname(os.path.dirname(__file__)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bounds.npy")
+        out = subprocess.run([sys.executable, "-c", code, path], capture_output=True,
+                             text=True, check=True,
+                             cwd=os.path.dirname(os.path.dirname(__file__)))
+        bounds = np.load(path)
     lines = out.stdout.split()
-    assert lines[:4] == ["no", "spaces", "no", "frame"]
+    assert lines[:3] == ["True", "no", "frame"]
     assert lines[-1] == "District" and int(lines[-2]) > 50
+    env = CityLearnEnv(schemas["ev"], episode_time_steps=12, device="cpu")
+    spaces = env.observation_space + env.action_space + [env.buildings[0].action_space]
+    assert np.array_equal(bounds, np.concatenate([np.concatenate([s.low, s.high])
+                                                  for s in spaces]))
