@@ -4,10 +4,12 @@ battery+PV district's evaluation (kernel K1) and training (K2), the
 thermal-storage district's evaluation (K3), the EV district's (K4), the
 LSTM-dynamics district's (K5) and the neighborhood districts' (K6 and the
 post-pass P6), then training on every family and batched MARLISA, the Gym
-env, and last the user's entry point, ``citylearn_tpu_torch.cli``, with the
-host-loop agents.
+env, the user's entry point, ``citylearn_tpu_torch.cli``, with the
+host-loop agents, and last the district mesh over ranks of
+``torch.distributed``.
 
     python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py --cards N [--json PATH]   # phase 30(c) alone, on N cards
 
 Phases, each of which raises on failure:
   1. the device: name, count, torch and CUDA versions, nvidia-smi;
@@ -188,6 +190,37 @@ Phases, each of which raises on failure:
      finite table, ms a step before and after the updates start; (c)
      ``MARLISA`` on battery+PV over 48 steps with the numpy PCA and
      regression, its coordinated policy from step 41.
+ 30. the district mesh (``citylearn_tpu_torch.parallel``) on the one card:
+     every rank is started with ``torch.multiprocessing`` ``spawn`` and
+     the variables that ``torchrun`` sets, and joins through
+     ``initialize_distributed``; (a) two ranks, both on ``cuda:0`` under
+     gloo (NCCL refuses two ranks on one card; gloo exchanges CUDA tensors
+     through the host), each with 2048 of D=4096
+     districts: ``evaluate_scripted(mesh=)`` over the full year on the
+     battery+PV, thermal, EV, LSTM and EULP districts of phases 26-29's
+     data root, each rank launching each of the family's kernels exactly
+     once (K1, K3, K4, K5; K6 and P6) and issuing no collective, its table
+     and record bit-equal to a single process's over all D districts and
+     its state outputs bit-equal to its rows of the single launch; then
+     ``BatchedSAC(mesh=)`` at phase 8's settings, 64 warmup steps bit-equal
+     to the unsharded trainer's rows, two 64-step chunks with updates (one
+     K2 launch per chunk per rank) whose networks and Adam states are
+     bit-identical across the ranks, finite and moved, the ms per chunk
+     split into collect, updates and the batch ``all_reduce``, and its
+     sharded ``evaluate``; ``BatchedMARLISA(mesh=)`` over 16 steps with a
+     ridge refit every 8, the same ridge weights on both ranks; (b) one
+     rank under NCCL, where ``initialize_distributed()`` must join no group
+     (a world of one, as in the JAX package) and the rank joins one itself:
+     battery+PV ``evaluate_scripted`` and one 64-step ``BatchedSAC`` chunk
+     with updates bit-equal to the run without a mesh. Two ranks share one
+     card: its times are no multi-GPU speed.
+     (c) with ``--cards N`` (N > 1), instead of phases 3-30: N ranks, one
+     on each card, joined through ``initialize_distributed()``'s defaults
+     (nccl, ``env://``) and placed by ``district_mesh()``'s
+     (``cuda:$LOCAL_RANK``), run (a)'s evaluation and training at D=4096,
+     each rank's single process on its own card; and every kernel of the
+     path (K1, K2, K3, K4, K5, K6, P6) launched on the rank's card while
+     another card is current, bit-equal to the launch with its own current.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -245,6 +278,15 @@ from citylearn_tpu_torch.synthetic import (
 )
 from citylearn_tpu_torch import cli
 from citylearn_tpu_torch import train as train_module
+from citylearn_tpu_torch.core import rollout_fast
+from citylearn_tpu_torch.parallel import (
+    all_gather,
+    all_reduce,
+    district_mesh,
+    district_slice,
+    free_port,
+    initialize_distributed,
+)
 from citylearn_tpu_torch.agents import sac
 from citylearn_tpu_torch.envs import environment
 from citylearn_tpu_torch.envs.environment import CityLearnEnv
@@ -368,6 +410,10 @@ FAMILY_WRITERS = {
     "quebec": lambda d: write_neighborhood_dataset(d, QUEBEC_BUILDINGS, N_ROWS, SEED,
                                                    quebec=True),
 }
+# phase 30: the district mesh on the one card
+MESH_FAMILIES = ("battery", "thermal", "ev", "lstm", "eulp")
+MESH_EVALUATE_STEPS = 24      # the sharded trainer's evaluate, which gathers its table
+MESH_MARLISA_STEPS = 16
 DATASET_PREFIX = "smoke_"     # the named datasets' directories: smoke_<family>
 _DATA_ROOT = []               # the run's data root, a TemporaryDirectory made on first use
 
@@ -2045,6 +2091,441 @@ def cli_path(dev, results):
     return launched
 
 
+def mesh_plans():
+    """Each phase-30 family's hour tables (phases 5, 11, 15, 19 and 24's)."""
+    return {"battery": {"electrical_storage": basic_rbc_table()},
+            "thermal": thermal_rbc_tables(), "ev": ev_plans(EV_SHAPE[1]),
+            "lstm": lstm_plans(), "eulp": neighborhood_plans()}
+
+
+MESH_KERNELS = {"battery": (k1.battery_episode,), "thermal": (k3.thermal_episode,),
+                "ev": (k4.ev_episode,), "lstm": (k5.lstm_episode,),
+                "neighborhood": (k6.neighborhood_episode, p6.postpass_kernel)}
+MESH_RUN = {"battery": rollout_fast.run_battery_episode,
+            "thermal": rollout_fast.run_thermal_episode, "ev": rollout_fast.run_ev_episode,
+            "lstm": rollout_fast.run_lstm_episode,
+            "neighborhood": rollout_fast.run_neighborhood_episode}
+
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` equal element for element, NaN where the other is NaN."""
+    nan = a.isnan()
+    return (a.shape == b.shape and torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def same_table(a, b) -> bool:
+    return set(a) == set(b) and all(same_bits(a[k], b[k]) for k in a)
+
+
+def mesh_evaluation(mesh, job):
+    """Phase 30's sharded ``evaluate_scripted`` on every family: one launch
+    of each kernel of the family and no collective on this rank, the table
+    and record bit-equal to a single process's over all D districts, and
+    this rank's state outputs bit-equal to its rows of the single launch."""
+    out = {}
+    rows = district_slice(mesh, D)
+    for name in MESH_FAMILIES:
+        cfg, params, _ = pack(compile_schema(job["schemas"][name]), device=mesh.device)
+        family = kernel_family(cfg)
+        plans = job["plans"][name]
+        policy = ScriptedPolicy(plans)
+        kernels = MESH_KERNELS[family]
+        for kernel in kernels:
+            kernel.launches = 0
+        before = mesh.collectives
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table, rec = evaluate_scripted(cfg, params, policy, n_districts=D, mesh=mesh,
+                                       return_series=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {kernel.__name__: kernel.launches for kernel in kernels}
+        collectives = mesh.collectives - before
+        if any(n != 1 for n in launches.values()) or collectives:
+            raise AssertionError(f"{name}: sharded evaluate_scripted launched {launches} "
+                                 f"and issued {collectives} collectives")
+        single, single_rec = evaluate_scripted(cfg, params, policy, n_districts=D,
+                                               device=mesh.device, return_series=True)
+        if not (same_table(table, single) and torch.equal(rec, single_rec)):
+            raise AssertionError(f"{name}: the rank's table differs from the single launch's")
+        plan = policy.expanded(cfg, params, cfg.time_steps - 1)
+        action = plan["electrical_storage"] if family == "battery" else plan
+        share = MESH_RUN[family](cfg, params, D, action, mesh=mesh)
+        whole = MESH_RUN[family](cfg, params, D, action, device=mesh.device)
+        if not all(a.shape[0] == D // mesh.world_size and torch.equal(a, b[rows])
+                   for a, b in zip(share, whole, strict=True)):
+            raise AssertionError(f"{name}: the rank's state outputs differ from its rows of "
+                                 "the single launch")
+        # the counted call above was this process's first of the family;
+        # once more, warm, and the single process over all D as warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_scripted(cfg, params, policy, n_districts=D, mesh=mesh)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        evaluate_scripted(cfg, params, policy, n_districts=D, device=mesh.device)
+        torch.cuda.synchronize()
+        out[name] = dict(ms=ms, warm_ms=warm_ms, single_warm_ms=(time.perf_counter() - t0) * 1e3,
+                         launches=launches, collectives=collectives)
+    return out
+
+
+def flat_nets(tr) -> torch.Tensor:
+    """Every network weight and Adam moment of a trainer, in one vector."""
+    flat = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+        elif torch.is_tensor(tree) and tree.is_floating_point():
+            # Adam's step counts live on the host
+            flat.append(tree.detach().reshape(-1).to(tr.device, torch.float32))
+    walk(tr.base_state.nets.state_dict())
+    return torch.cat(flat)
+
+
+def replicas_identical(mesh, tr) -> bool:
+    """Every rank holds the same networks and Adam states, bit for bit."""
+    mine = flat_nets(tr)
+    return all(torch.equal(mine, peer) for peer in all_gather(mesh, mine))
+
+
+def mesh_training(mesh, job):
+    """Phase 30's sharded ``BatchedSAC`` and ``BatchedMARLISA`` on the
+    battery+PV district at phase 8's settings."""
+    schema = job["schemas"]["battery"]
+    rows = district_slice(mesh, D)
+    trainer = lambda warmup, **kw: BatchedSAC(
+        schema, TrainConfig(warmup_steps=warmup, **TRAIN), random_seed=SEED,
+        episode_time_steps=TRAIN_EPISODE, **kw)
+    sharded, whole = trainer(K_CHUNK, mesh=mesh), trainer(K_CHUNK, device=mesh.device)
+    if not (sharded.use_kernel_collect and whole.use_kernel_collect):
+        raise AssertionError("the trainers did not take the kernel collect")
+    # 64 warmup steps: this rank's rows of the unsharded trainer's, bit for bit
+    for tr in (sharded, whole):
+        tr.train(K_CHUNK, chunk=K_CHUNK)
+    torch.cuda.synchronize()
+    a, b = sharded.state, whole.state
+    pairs = [(f, getattr(a.env_state, f), getattr(b.env_state, f)[rows])
+             for f in ("t", "data_offset", "battery_soc", "battery_efficiency",
+                       "battery_degraded_capacity")]
+    pairs += [("cur_obs", a.cur_obs, b.cur_obs[rows])]
+    pairs += [(f, getattr(a, f), getattr(b, f)[:, rows])
+              for f in ("replay_obs", "replay_act", "replay_rew", "replay_next", "replay_done")]
+    for f, x, y in pairs:
+        if not torch.equal(x, y):
+            raise AssertionError(f"warmup: the rank's {f} differs from the unsharded trainer's")
+    del whole
+    # two chunks with updates: the replicas stay identical, finite, and move
+    w0 = sharded.state.nets.policy.mean_w.detach().clone()
+    k2.battery_collect_chunk.launches = 0
+    chunk_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = sharded.train(K_CHUNK, chunk=K_CHUNK)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    k2_launches = k2.battery_collect_chunk.launches
+    if k2_launches != 2:
+        raise AssertionError(f"K2 launched {k2_launches} times in two chunks")
+    moved = float((sharded.state.nets.policy.mean_w.detach() - w0).abs().max())
+    if not (replicas_identical(mesh, sharded) and torch.isfinite(flat_nets(sharded)).all()
+            and moved > 0
+            and math.isfinite(hist[0])):
+        raise AssertionError("the ranks' networks differ, are not finite or did not move")
+    # the chunk's parts: the collect alone, and the batch all_reduce alone
+    sharded._update = lambda t, n_slots: None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded.train(K_CHUNK, chunk=K_CHUNK)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    del sharded._update
+    A = sharded.env_cfg.n_buildings
+    batch = torch.zeros((TRAIN["batch_size"], A * (2 * sharded.obs_dim + sharded.act_dim + 1)
+                         + 1), device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(K_CHUNK):
+        all_reduce(mesh, batch)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    table = sharded.evaluate(n_steps=MESH_EVALUATE_STEPS)
+    check_table(table, (D,), "sharded BatchedSAC.evaluate")
+    del sharded
+    # MARLISA: the ridge the same on every rank
+    marlisa = BatchedMARLISA(schema, TrainConfig(warmup_steps=FAMILY_WARMUP, **TRAIN),
+                             random_seed=SEED, regression_update_every=MARLISA_EVERY,
+                             episode_time_steps=TRAIN_EPISODE, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marlisa.train(MESH_MARLISA_STEPS, chunk=MESH_MARLISA_STEPS)
+    torch.cuda.synchronize()
+    marlisa_ms = (time.perf_counter() - t0) * 1e3 / MESH_MARLISA_STEPS
+    reg_w = marlisa.state.reg_w
+    if not (float(reg_w.abs().max()) > 0
+            and all(torch.equal(reg_w, peer) for peer in all_gather(mesh, reg_w))
+            and replicas_identical(mesh, marlisa)):
+        raise AssertionError("MARLISA: the ranks' ridge weights or networks differ")
+    return dict(chunk_ms=chunk_ms, collect_ms=collect_ms,
+                updates_ms=sum(chunk_ms) / 2 - collect_ms, reduce_ms=reduce_ms,
+                batch_bytes=batch.numel() * 4, moved=moved, k2_launches=k2_launches,
+                marlisa_ms=marlisa_ms)
+
+
+def mesh_nccl(mesh, job):
+    """Phase 30(b): one rank under NCCL, whose collectives run for real,
+    gives what the run without a mesh gives, bit for bit: battery+PV
+    ``evaluate_scripted`` and one 64-step ``BatchedSAC`` chunk with updates."""
+    schema = job["schemas"]["battery"]
+    cfg, params, _ = pack(compile_schema(schema), device=mesh.device)
+    policy = ScriptedPolicy(job["plans"]["battery"])
+    k1.battery_episode.launches = 0
+    table = evaluate_scripted(cfg, params, policy, n_districts=D, mesh=mesh)
+    k1_launches = k1.battery_episode.launches
+    if not same_table(table, evaluate_scripted(cfg, params, policy, n_districts=D,
+                                               device=mesh.device)):
+        raise AssertionError("NCCL: the table differs from the run without a mesh")
+    trainer = lambda **kw: BatchedSAC(
+        schema, TrainConfig(warmup_steps=FAMILY_WARMUP, **TRAIN), random_seed=SEED,
+        episode_time_steps=TRAIN_EPISODE, **kw)
+    sharded, whole = trainer(mesh=mesh), trainer(device=mesh.device)
+    before = mesh.collectives
+    k2.battery_collect_chunk.launches = 0
+    sharded.train(K_CHUNK, chunk=K_CHUNK)
+    k2_launches = k2.battery_collect_chunk.launches
+    collectives = mesh.collectives - before
+    whole.train(K_CHUNK, chunk=K_CHUNK)
+    a, b = sharded.state, whole.state
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in a.BUFFERS) and \
+        torch.equal(a.env_state.battery_soc, b.env_state.battery_soc) and \
+        torch.equal(flat_nets(sharded), flat_nets(whole))
+    if not same:
+        raise AssertionError("NCCL: the chunk differs from the run without a mesh")
+    return dict(k1_launches=k1_launches, k2_launches=k2_launches, collectives=collectives)
+
+
+def mesh_context(mesh, job):
+    """Phase 30(c): every kernel of the mesh's path launched on this rank's
+    card while another card is the current CUDA device. Each wrapper
+    launches under its tensors' device, so each launch counts once and
+    gives what it gives with the rank's own card current, bit for bit."""
+    other = (mesh.device.index + 1) % torch.cuda.device_count()
+    launches = {}
+    for name in MESH_FAMILIES:
+        cfg, params, _ = pack(compile_schema(job["schemas"][name]), device=mesh.device)
+        policy = ScriptedPolicy(job["plans"][name])
+        kernels = MESH_KERNELS[kernel_family(cfg)]
+        mine = evaluate_scripted(cfg, params, policy, n_districts=D, mesh=mesh)
+        for kernel in kernels:
+            kernel.launches = 0
+        with torch.cuda.device(other):
+            theirs = evaluate_scripted(cfg, params, policy, n_districts=D, mesh=mesh)
+        torch.cuda.synchronize(mesh.device)
+        launches.update({kernel.__name__: kernel.launches for kernel in kernels})
+        if not same_table(mine, theirs) or any(kernel.launches != 1 for kernel in kernels):
+            raise AssertionError(f"{name}: with cuda:{other} current the table differs or the "
+                                 "kernels did not launch once each")
+    # K2 on the inputs that a sharded trainer hands it in one chunk
+    handed = {}
+    shipped = train_module.battery_collect_chunk
+
+    def keep(*args, **kw):
+        handed.update(args=[a.clone() if torch.is_tensor(a) else a for a in args], kw=kw)
+        return shipped(*args, **kw)
+
+    trainer = BatchedSAC(job["schemas"]["battery"], TrainConfig(warmup_steps=K_CHUNK, **TRAIN),
+                         random_seed=SEED, episode_time_steps=TRAIN_EPISODE, mesh=mesh)
+    train_module.battery_collect_chunk = keep
+    try:
+        trainer.train(K_CHUNK, chunk=K_CHUNK)
+    finally:
+        train_module.battery_collect_chunk = shipped
+    mine = k2.battery_collect_chunk(*handed["args"], **handed["kw"])
+    k2.battery_collect_chunk.launches = 0
+    with torch.cuda.device(other):
+        theirs = k2.battery_collect_chunk(*handed["args"], **handed["kw"])
+    torch.cuda.synchronize(mesh.device)
+    launches["battery_collect_chunk"] = k2.battery_collect_chunk.launches
+    if not (launches["battery_collect_chunk"] == 1
+            and all(torch.equal(a, b) for a, b in zip(mine, theirs, strict=True))):
+        raise AssertionError(f"K2: with cuda:{other} current the outputs differ")
+    return dict(other=other, launches=launches)
+
+
+def mesh_rank(rank, world, port, job, out_dir):
+    """One rank of phase 30, in a process of its own, started with the
+    variables that ``torchrun`` sets and joined through
+    ``initialize_distributed`` from them."""
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    initialize_distributed(backend=job["backend"])
+    if world == 1:
+        # a world of one joins no group, as the JAX package's does not; (b)
+        # joins one itself, so that its collectives run through NCCL
+        if torch.distributed.is_initialized():
+            raise AssertionError("initialize_distributed joined a group at a world of one")
+        torch.distributed.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+    try:
+        mesh = district_mesh(device=job["device"])
+        backend = torch.distributed.get_backend(mesh.group)
+        if backend != (job["backend"] or "nccl"):
+            raise AssertionError(f"rank {rank} joined a {backend} group")
+        if job["part"] == "a":
+            out = dict(evaluation=mesh_evaluation(mesh, job), training=mesh_training(mesh, job))
+        elif job["part"] == "b":
+            out = mesh_nccl(mesh, job)
+        else:
+            if mesh.device != torch.device("cuda", rank):
+                raise AssertionError(f"rank {rank}'s mesh is on {mesh.device}")
+            out = dict(evaluation=mesh_evaluation(mesh, job), context=mesh_context(mesh, job),
+                       training=mesh_training(mesh, job))
+        with open(os.path.join(out_dir, f"{job['part']}-rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_mesh(world, job, out_dir):
+    """Run ``mesh_rank`` on ``world`` processes; raises if any rank fails
+    (the others are stopped). Returns each rank's numbers."""
+    torch.multiprocessing.spawn(mesh_rank, args=(world, free_port(), job, out_dir),
+                                nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{job['part']}-rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_job():
+    return dict(schemas={name: named_dataset(name) for name in MESH_FAMILIES},
+                plans=mesh_plans())
+
+
+def print_mesh_evaluation(ranks, launched, results, key):
+    for name in MESH_FAMILIES:
+        per_rank = [r["evaluation"][name] for r in ranks]
+        for r in per_rank:
+            for k, n in r["launches"].items():
+                launched[k] = launched.get(k, 0) + n
+        ms = " / ".join(f"{r['ms']:.1f}" for r in per_rank)
+        warm = " / ".join(f"{r['warm_ms']:.1f}" for r in per_rank)
+        single = " / ".join(f"{r['single_warm_ms']:.1f}" for r in per_rank)
+        print(f"  {name}: evaluate_scripted over the year, launches per rank "
+              f"{per_rank[0]['launches']}, collectives {per_rank[0]['collectives']}; table, "
+              f"record and state share bit-equal to the single launch's; {ms} ms, warm {warm} "
+              f"ms; one process over all D, warm: {single} ms (ranks in order)")
+        results[f"{key}_{name}_evaluate_ms"] = [r["ms"] for r in per_rank]
+        results[f"{key}_{name}_evaluate_warm_ms"] = [r["warm_ms"] for r in per_rank]
+        results[f"{key}_{name}_single_warm_ms"] = [r["single_warm_ms"] for r in per_rank]
+
+
+def print_mesh_training(tr, launched):
+    launched["battery_collect_chunk"] = (launched.get("battery_collect_chunk", 0)
+                                         + sum(t["k2_launches"] for t in tr))
+    chunk_ms = " / ".join(f"{c:.1f}" for c in tr[0]["chunk_ms"])
+    print(f"  BatchedSAC at D={D}: {K_CHUNK} warmup steps bit-equal to the unsharded trainer's "
+          f"rows; two {K_CHUNK}-step chunks with updates, K2 launched {tr[0]['k2_launches']} "
+          f"times per rank, replicas bit-identical, policy moved by {tr[0]['moved']:.3e}; ms per "
+          f"chunk {chunk_ms} (rank 0): collect "
+          f"{tr[0]['collect_ms']:.1f}, {K_CHUNK} updates {tr[0]['updates_ms']:.1f}, of which "
+          f"{K_CHUNK} batch all_reduces of {tr[0]['batch_bytes']} bytes {tr[0]['reduce_ms']:.1f} "
+          f"(alone); MARLISA {tr[0]['marlisa_ms']:.1f} ms a step, ridge identical on every rank")
+
+
+def mesh_path(dev, results):
+    """Phase 30: the district mesh on the one card. Returns the main path's
+    launches of each kernel, summed over the ranks."""
+    phase("30. the district mesh: two gloo ranks sharing the card, then one NCCL rank")
+    t_phase = time.perf_counter()
+    job = mesh_job()
+    with tempfile.TemporaryDirectory() as out:
+        # NCCL refuses two ranks on one card; gloo exchanges CUDA tensors
+        # through the host, so two gloo ranks can share it
+        ranks = spawn_mesh(2, dict(job, part="a", backend="gloo", device="cuda:0"), out)
+        nccl = spawn_mesh(1, dict(job, part="b", backend=None, device=None), out)[0]
+    smi = nvidia_smi()
+    absent = f"cuda:{torch.cuda.device_count()}"
+    try:
+        district_mesh(device=absent)
+    except RuntimeError as e:
+        print(f"a mesh on {absent} raises: {e}")
+    else:
+        raise AssertionError(f"a mesh on the absent {absent} did not raise")
+    launched = {}
+    print(f"(a) two gloo ranks on {smi}, each with {D // 2} of D={D} districts; times are "
+          "of two ranks sharing one card, not of two cards:")
+    print_mesh_evaluation(ranks, launched, results, "mesh")
+    tr = [r["training"] for r in ranks]
+    print_mesh_training(tr, launched)
+    print(f"(b) one NCCL rank: battery+PV evaluate_scripted ({nccl['k1_launches']} K1 launch) "
+          f"and one {K_CHUNK}-step BatchedSAC chunk ({nccl['k2_launches']} K2 launch, "
+          f"{nccl['collectives']} NCCL collectives) bit-equal to the run without a mesh")
+    launched["battery_episode"] += nccl["k1_launches"]
+    launched["battery_collect_chunk"] += nccl["k2_launches"]
+    results.update(mesh_training=tr, mesh_nccl=nccl, mesh_launches=launched,
+                   mesh_s=time.perf_counter() - t_phase)
+    print(f"phase 30: launches {launched}; {results['mesh_s']:.1f} s; {smi}")
+    return launched
+
+
+def cards_main(n_cards, json_path=None):
+    """Phase 30(c) alone: ``n_cards`` NCCL ranks, one on each card, each
+    joined through ``initialize_distributed()``'s defaults (torchrun's
+    variables, ``env://``, nccl) and placed by ``district_mesh()``'s
+    (``cuda:$LOCAL_RANK``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < n_cards:
+        print(f"chip_smoke.py: --cards {n_cards} on {torch.cuda.device_count()} card(s)",
+              file=sys.stderr)
+        return 1
+    phase("1. device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30, check=True).stdout.strip()
+    print(f"devices: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi:\n{smi}")
+    phase("2. build kernels")
+    t0 = time.perf_counter()
+    print(f"built {sorted(_build.build()) or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    phase(f"30(c). the district mesh: {n_cards} NCCL ranks, one on each card")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ranks = spawn_mesh(n_cards, dict(mesh_job(), part="c", backend=None, device=None), out)
+    results, launched = {}, {}
+    print(f"{n_cards} NCCL ranks, rank r on cuda:r, each with {D // n_cards} of D={D} "
+          "districts; each rank's single process runs on its own card:")
+    print_mesh_evaluation(ranks, launched, results, "cards")
+    for r, c in enumerate(ranks):
+        print(f"  rank {r} with cuda:{c['context']['other']} current: every kernel launched "
+              f"once on cuda:{r}, {c['context']['launches']}, bit-equal to its own card current")
+    tr = [r["training"] for r in ranks]
+    print_mesh_training(tr, launched)
+    results.update(cards=n_cards, cards_training=tr, cards_launches=launched,
+                   cards_context=[c["context"] for c in ranks],
+                   cards_s=time.perf_counter() - t_phase)
+    print(f"phase 30(c): launches {launched}; {results['cards_s']:.1f} s")
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if json_path:
+        os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
+        with open(json_path, "w") as f:
+            json.dump(dict(results, nvidia_smi=smi, device=device), f, indent=1)
+    print(smi)
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
 def main(json_path=None):
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -2356,6 +2837,7 @@ def main(json_path=None):
     marlisa_training(dev, results)
     env_path(dev, results)
     cli_launches = cli_path(dev, results)
+    mesh_launches = mesh_path(dev, results)
 
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",
@@ -2372,11 +2854,11 @@ def main(json_path=None):
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
         "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels]}
-    # the main path's launches of phase 29 beside each row's own
+    # the main path's launches of phases 29 and 30 beside each row's own
     row_of = {"postpass_kernel": "neighborhood_postpass"}
     for row in kernels["kernels"]:
-        row["launches"] += sum(n for k, n in cli_launches.items()
-                               if row_of.get(k, k) == row["name"])
+        row["launches"] += sum(n for launched in (cli_launches, mesh_launches)
+                               for k, n in launched.items() if row_of.get(k, k) == row["name"])
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if json_path:
@@ -2392,4 +2874,8 @@ def main(json_path=None):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measured numbers to this file")
-    sys.exit(main(ap.parse_args().json))
+    ap.add_argument("--cards", type=int, default=1,
+                    help="above 1: run phase 30(c) alone, one NCCL rank on each of this many "
+                         "cards")
+    args = ap.parse_args()
+    sys.exit(main(args.json) if args.cards == 1 else cards_main(args.cards, args.json))

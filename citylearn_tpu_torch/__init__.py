@@ -43,6 +43,12 @@ MARLISA), the observation encoders of ``preprocessing`` and the Gym
 wrappers of ``wrappers``. Without gymnasium the env's spaces are
 ``spaces.Box``.
 
+Districts shard over GPUs, one process per GPU under ``torch.distributed``
+(``parallel``: ``initialize_distributed``, ``district_mesh``,
+``shard_district_batch``): the ``run_*_episode`` functions,
+``evaluate_scripted``, ``BatchedSAC`` and ``BatchedMARLISA`` take
+``mesh=``, and each rank runs its share of the districts on its card.
+
 The package imports ``torch`` and never ``jax`` nor the JAX package.
 Entry points take a ``device`` argument: ``None`` means the CUDA card,
 and raises when there is none; pass ``device="cpu"`` to run the plain
@@ -77,11 +83,16 @@ _EXPORTS = {
     "BatchedMARLISA": "citylearn_tpu_torch.train_marlisa",
     "CityLearnEnv": "citylearn_tpu_torch.envs.environment",
     "EvaluationCondition": "citylearn_tpu_torch.envs.views",
+    "initialize_distributed": "citylearn_tpu_torch.parallel.mesh",
+    "district_mesh": "citylearn_tpu_torch.parallel.mesh",
+    "shard_district_batch": "citylearn_tpu_torch.parallel.mesh",
 }
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the CUDA card by default.
+    """The device an entry point runs on: the CUDA card by default (the
+    current one); a device named with an index, such as a rank's
+    ``cuda:1``, keeps it.
 
     Raises when no card is present and no device was named, so that a
     run meant for the card never carries on quietly on the CPU."""

@@ -28,7 +28,6 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.core import hvac, rollout_fast
 from citylearn_tpu_torch.core.evaluate import kpi_table, window
 from citylearn_tpu_torch.core.neighborhood_eval import temp_setpoint_series
@@ -294,7 +293,7 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
                       policy: ScriptedPolicy, n_steps: int = None,
                       baseline_condition: str = "_without_storage",
                       n_districts: int = None, return_series: bool = False,
-                      data_offset: int = 0, device=None):
+                      data_offset: int = 0, device=None, mesh=None):
     """Full normalized KPI table for ONE district under an open-loop
     policy, computed on the whole-episode kernel of the configuration's
     family on ``device`` (the CUDA card by default).
@@ -312,7 +311,14 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
     series, hour tables and the KPI window all follow the offset.
     Stochastic-outage signals are baked for the default window only, so a
     shifted window on such a dataset raises. The float64 parity mode
-    raises too (:func:`rollout_fast.refuse_parity`)."""
+    raises too (:func:`rollout_fast.refuse_parity`).
+
+    ``mesh`` (a :class:`citylearn_tpu_torch.parallel.DistrictMesh`) shards
+    the ``n_districts`` (one per rank by default) over its ranks: each
+    rank launches the family's kernel once on its share, on the mesh's
+    card, and assembles the same table from its own record with no
+    collective; on the neighborhood family each rank runs the post-pass
+    once."""
     rollout_fast.refuse_parity(cfg)
     family = kernel_family(cfg)
     if family is None:
@@ -330,31 +336,25 @@ def evaluate_scripted(cfg: StaticConfig, params: DistrictParams,
     if family == "neighborhood" and not rollout_fast.neighborhood_packable(cfg, params):
         raise ValueError("configuration not neighborhood-packable; use "
                          "evaluate_districts (stepped path) instead")
-    dev = resolve_device(device)
-    params = params.to(dev)
+    mesh = rollout_fast.as_mesh(mesh, device)
+    D = n_districts or mesh.world_size
+    params = params.to(mesh.device)
     S = (cfg.time_steps - 1) if n_steps is None else int(n_steps)
     plans = policy.expanded(cfg, params, S, data_offset=off)
+    where = dict(n_steps=S, record_series=True, data_offset=off, mesh=mesh)
     if family == "battery":
         out = rollout_fast.run_battery_episode(
-            cfg, params, n_districts or 1,
+            cfg, params, D,
             plans.get("electrical_storage", np.zeros((S, cfg.n_buildings), np.float32)),
-            n_steps=S, record_series=True, data_offset=off, device=dev)
+            **where)
     elif family == "lstm":
-        out = rollout_fast.run_lstm_episode(
-            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
-            data_offset=off, device=dev)
+        out = rollout_fast.run_lstm_episode(cfg, params, D, plans, **where)
     elif family == "ev":
-        out = rollout_fast.run_ev_episode(
-            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
-            data_offset=off, device=dev)
+        out = rollout_fast.run_ev_episode(cfg, params, D, plans, **where)
     elif family == "neighborhood":
-        out = rollout_fast.run_neighborhood_episode(
-            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
-            data_offset=off, device=dev)
+        out = rollout_fast.run_neighborhood_episode(cfg, params, D, plans, **where)
     else:
-        out = rollout_fast.run_thermal_episode(
-            cfg, params, n_districts or 1, plans, n_steps=S, record_series=True,
-            data_offset=off, device=dev)
+        out = rollout_fast.run_thermal_episode(cfg, params, D, plans, **where)
     rec = out[-1]
     postpass = None
     if family == "neighborhood":

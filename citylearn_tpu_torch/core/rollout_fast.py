@@ -35,6 +35,7 @@ from citylearn_tpu_torch.ops.lstm import (
 )
 from citylearn_tpu_torch.ops.neighborhood import N_NROWS, neighborhood_episode
 from citylearn_tpu_torch.ops.thermal import N_TROWS, thermal_episode
+from citylearn_tpu_torch.parallel.mesh import DistrictMesh, district_slice
 
 THERMAL_KEYS = ("cooling_storage", "dhw_storage", "electrical_storage")
 LSTM_KEYS = ("cooling_device",) + THERMAL_KEYS
@@ -97,6 +98,26 @@ def _pad_time(arr: torch.Tensor, n: int, off: int = 0) -> torch.Tensor:
     win = arr[off:off + n]
     out[:win.shape[0]] = win
     return out
+
+
+def as_mesh(mesh, device=None) -> DistrictMesh:
+    """``mesh``, which must sit on ``device`` where one is named; without
+    one, a world of one on ``device`` (the CUDA card by default), whose
+    share is the whole batch and whose collectives exchange nothing."""
+    if mesh is None:
+        return DistrictMesh(0, 1, resolve_device(device), None)
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    return mesh
+
+
+def local_districts(mesh, n_districts: int, device=None):
+    """How many of ``n_districts`` this process runs, and where: this
+    rank's equal share on the mesh's device (all of them on ``device``
+    without a mesh, see :func:`as_mesh`)."""
+    mesh = as_mesh(mesh, device)
+    rows = district_slice(mesh, int(n_districts))
+    return rows.stop - rows.start, mesh.device
 
 
 def expand_action_plan(arr, hours: np.ndarray, S: int, B: int) -> np.ndarray:
@@ -177,7 +198,7 @@ def run_battery_episode(cfg: StaticConfig, params: DistrictParams,
                         n_districts: int, action_table,
                         n_steps: Optional[int] = None,
                         record_series: bool = False,
-                        data_offset: int = 0, device=None):
+                        data_offset: int = 0, device=None, mesh=None):
     """Whole-episode rollout for ``n_districts`` identical district copies
     under an open-loop action plan ((24,) hour table, (S,) series or
     (S, B) per-building plan), on ``device`` (the CUDA card by default).
@@ -189,11 +210,20 @@ def run_battery_episode(cfg: StaticConfig, params: DistrictParams,
     ``data_offset`` selects a shifted episode window [off, off + S) of
     the sim range (the reference's rolling/random ``EpisodeTracker``
     splits, ``base.py:76-129``): input series and hour tables follow the
-    window; explicit per-step plans stay episode-relative."""
+    window; explicit per-step plans stay episode-relative.
+
+    ``mesh`` (a :class:`citylearn_tpu_torch.parallel.DistrictMesh`)
+    shards the ``n_districts`` over its ranks, as the JAX package's
+    ``_shard_launch`` shards them over devices: this rank launches the
+    kernel once, on its ``n_districts / world_size`` districts on the
+    mesh's card, and returns its share of the state outputs and its own
+    first district's record (identical districts record identical
+    streams). No collective is issued."""
     refuse_parity(cfg)
     if not eligible(cfg):
         raise ValueError("configuration not eligible for the battery fast path")
-    params = params.to(resolve_device(device))
+    n_districts, dev = local_districts(mesh, n_districts, device)
+    params = params.to(dev)
     return battery_episode(**battery_episode_inputs(
         cfg, params, n_districts, action_table, n_steps, data_offset),
         record=record_series)
@@ -259,7 +289,7 @@ def run_thermal_episode(cfg: StaticConfig, params: DistrictParams,
                         n_districts: int, action_tables: Dict[str, object],
                         n_steps: Optional[int] = None,
                         record_series: bool = False,
-                        data_offset: int = 0, device=None):
+                        data_offset: int = 0, device=None, mesh=None):
     """Whole-episode rollout on the thermal kernel for ``n_districts``
     identical district copies under open-loop action plans
     ``{action_name: (24,) hour table | (S,) | (S, B)}`` (cooling_storage /
@@ -271,11 +301,13 @@ def run_thermal_episode(cfg: StaticConfig, params: DistrictParams,
     ``record_series=True`` an extra (N_TREC, S, B) per-step stream of
     district 0 is appended (see :mod:`citylearn_tpu_torch.ops.thermal`
     row constants). ``data_offset`` shifts the episode window as in
+    :func:`run_battery_episode`. ``mesh`` shards the districts as in
     :func:`run_battery_episode`."""
     refuse_parity(cfg)
     if not eligible_thermal(cfg):
         raise ValueError("configuration not eligible for the thermal fast path")
-    params = params.to(resolve_device(device))
+    n_districts, dev = local_districts(mesh, n_districts, device)
+    params = params.to(dev)
     return thermal_episode(**thermal_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)
@@ -429,7 +461,8 @@ def ev_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: in
 
 def run_ev_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
                    action_tables: Dict[str, object], n_steps: Optional[int] = None,
-                   record_series: bool = False, data_offset: int = 0, device=None):
+                   record_series: bool = False, data_offset: int = 0, device=None,
+                   mesh=None):
     """Whole-episode rollout on the EV kernel for ``n_districts``
     identical district copies; ``action_tables``: open-loop plans per
     action class — ``electrical_storage`` ((24,) | (S,) | (S, B) over
@@ -442,11 +475,13 @@ def run_ev_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
     first six (D, B), the EV triple (D, V), wm (D, W); with
     ``record_series=True`` an (N_EREC, S, B) per-step stream of district
     0 is appended (net, raw battery balance/soc, charger and washing-
-    machine consumptions, reward)."""
+    machine consumptions, reward). ``mesh`` shards the districts as in
+    :func:`run_battery_episode`."""
     refuse_parity(cfg)
     if not eligible_ev(cfg):
         raise ValueError("configuration not eligible for the EV fast path")
-    params = params.to(resolve_device(device))
+    n_districts, dev = local_districts(mesh, n_districts, device)
+    params = params.to(dev)
     return ev_episode(**ev_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)
@@ -603,7 +638,8 @@ def lstm_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_districts: 
 
 def run_lstm_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
                      action_tables: Dict[str, object], n_steps: Optional[int] = None,
-                     record_series: bool = False, data_offset: int = 0, device=None):
+                     record_series: bool = False, data_offset: int = 0, device=None,
+                   mesh=None):
     """Whole-episode rollout on the LSTM-dynamics kernel for
     ``n_districts`` identical district copies under open-loop plans
     ``{action_name: (24,) hour table | (S,) | (S, B)}`` over
@@ -615,11 +651,13 @@ def run_lstm_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int
     ``record_series=True`` an (N_LREC, S, B) per-step stream of district
     0 is appended (see :mod:`citylearn_tpu_torch.ops.lstm` row constants).
     ``data_offset`` shifts the episode window as in
+    :func:`run_battery_episode`. ``mesh`` shards the districts as in
     :func:`run_battery_episode`."""
     refuse_parity(cfg)
     if not lstm_packable(cfg, params):
         raise ValueError("configuration not eligible for the LSTM fast path")
-    params = params.to(resolve_device(device))
+    n_districts, dev = local_districts(mesh, n_districts, device)
+    params = params.to(dev)
     return lstm_episode(**lstm_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)
@@ -728,7 +766,8 @@ def neighborhood_episode_inputs(cfg: StaticConfig, params: DistrictParams, n_dis
 
 def run_neighborhood_episode(cfg: StaticConfig, params: DistrictParams, n_districts: int,
                              action_tables: Dict[str, object], n_steps: Optional[int] = None,
-                             record_series: bool = False, data_offset: int = 0, device=None):
+                             record_series: bool = False, data_offset: int = 0, device=None,
+                   mesh=None):
     """Whole-episode rollout on the neighborhood kernel for ``n_districts``
     identical district copies under open-loop plans ``{action_name: (24,)
     hour table | (S,) | (S, B)}`` over cooling_or_heating_device /
@@ -743,11 +782,13 @@ def run_neighborhood_episode(cfg: StaticConfig, params: DistrictParams, n_distri
     sum is the default exponent-1 reward; the ComfortReward of a quebec
     district depends on the temperature of the post-pass and is not
     summed here. ``data_offset`` shifts the episode window as in
+    :func:`run_battery_episode`. ``mesh`` shards the districts as in
     :func:`run_battery_episode`."""
     refuse_parity(cfg)
     if not neighborhood_packable(cfg, params):
         raise ValueError("configuration not eligible for the neighborhood fast path")
-    params = params.to(resolve_device(device))
+    n_districts, dev = local_districts(mesh, n_districts, device)
+    params = params.to(dev)
     return neighborhood_episode(**neighborhood_episode_inputs(
         cfg, params, n_districts, action_tables, n_steps, data_offset),
         record=record_series)

@@ -129,10 +129,13 @@ def battery_collect_chunk(prep: CollectPrep, actions: torch.Tensor, nsl: torch.T
                          f"got {n_knots}")
     reward = torch.empty((K, D, B), dtype=torch.float32, device=soc.device)
     state = [torch.empty((D, B), dtype=torch.float32, device=soc.device) for _ in range(3)]
-    stream = torch.cuda.current_stream(soc.device).cuda_stream
-    err = _launcher()(*[x.data_ptr() for x in inputs + [reward] + state],
-                      D, B, K, n_knots, prep.hours_ratio, prep.ratio, int(first_chunk),
-                      stream)
+    # the launch function runs on the CUDA runtime's current device:
+    # make it the tensors' card
+    with torch.cuda.device(soc.device):
+        stream = torch.cuda.current_stream(soc.device).cuda_stream
+        err = _launcher()(*[x.data_ptr() for x in inputs + [reward] + state],
+                          D, B, K, n_knots, prep.hours_ratio, prep.ratio, int(first_chunk),
+                          stream)
     if err != 0:
         raise RuntimeError(f"battery_collect_chunk kernel launch failed: CUDA error {err}")
     battery_collect_chunk.launches += 1

@@ -523,10 +523,13 @@ def ev_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
     dims = [D, B, C, V, W, S, n_knots, ev_knots, ch_knots, int(bool(use_ev_reward)), row]
     scalars = [hours_ratio, ratio, penalty_coefficient, w_bl, w_imposs, 2.0 * w_under,
                w_under * w_under, w_close, w_esp, -0.5 * w_esp, w_sc, -0.5 * w_sc]
-    stream = torch.cuda.current_stream(soc0.device).cuda_stream
-    err = _launcher()((ctypes.c_void_p * len(ptrs))(*ptrs),
-                      (ctypes.c_int * len(dims))(*dims),
-                      (ctypes.c_float * len(scalars))(*scalars), stream)
+    # the launch function runs on the CUDA runtime's current device:
+    # make it the tensors' card
+    with torch.cuda.device(soc0.device):
+        stream = torch.cuda.current_stream(soc0.device).cuda_stream
+        err = _launcher()((ctypes.c_void_p * len(ptrs))(*ptrs),
+                          (ctypes.c_int * len(dims))(*dims),
+                          (ctypes.c_float * len(scalars))(*scalars), stream)
     if err != 0:
         raise RuntimeError(f"ev_episode kernel launch failed: CUDA error {err}")
     ev_episode.launches += 1

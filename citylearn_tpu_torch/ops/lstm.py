@@ -454,13 +454,16 @@ def lstm_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor]
     outs = [torch.empty((D, B), dtype=torch.float32, device=soc0.device) for _ in range(9)]
     rec = (torch.empty((N_LREC, S, B), dtype=torch.float32, device=soc0.device)
            if record else None)
-    stream = torch.cuda.current_stream(soc0.device).cuda_stream
-    err = _launcher()(*[x.data_ptr() for x in inputs], meta.data_ptr(),
-                      *[x.data_ptr() for x in outs],
-                      None if rec is None else rec.data_ptr(),
-                      D, B, S, X, n_knots, lookback,
-                      max(u[M_HIDDEN] for u in weights.units), hours_ratio, ratio, lo_exp,
-                      hi_exp, stream)
+    # the launch function runs on the CUDA runtime's current device:
+    # make it the tensors' card
+    with torch.cuda.device(soc0.device):
+        stream = torch.cuda.current_stream(soc0.device).cuda_stream
+        err = _launcher()(*[x.data_ptr() for x in inputs], meta.data_ptr(),
+                          *[x.data_ptr() for x in outs],
+                          None if rec is None else rec.data_ptr(),
+                          D, B, S, X, n_knots, lookback,
+                          max(u[M_HIDDEN] for u in weights.units), hours_ratio, ratio, lo_exp,
+                          hi_exp, stream)
     if err != 0:
         raise RuntimeError(f"lstm_episode kernel launch failed: CUDA error {err}")
     lstm_episode.launches += 1

@@ -326,10 +326,13 @@ def neighborhood_episode(actions: Sequence[torch.Tensor], series: Sequence[torch
            if record else None)
     s_pad = -(-S // STAGE_CHUNK) * STAGE_CHUNK
     stage = torch.empty((B, N_STAGE, s_pad), dtype=torch.float32, device=soc0.device)
-    stream = torch.cuda.current_stream(soc0.device).cuda_stream
-    err = _launcher()(*[x.data_ptr() for x in inputs + outs],
-                      None if rec is None else rec.data_ptr(), stage.data_ptr(),
-                      D, B, S, s_pad, n_knots, lookback, hours_ratio, ratio, stream)
+    # the launch function runs on the CUDA runtime's current device:
+    # make it the tensors' card
+    with torch.cuda.device(soc0.device):
+        stream = torch.cuda.current_stream(soc0.device).cuda_stream
+        err = _launcher()(*[x.data_ptr() for x in inputs + outs],
+                          None if rec is None else rec.data_ptr(), stage.data_ptr(),
+                          D, B, S, s_pad, n_knots, lookback, hours_ratio, ratio, stream)
     if err != 0:
         raise RuntimeError(f"neighborhood_episode kernel launch failed: CUDA error {err}")
     neighborhood_episode.launches += 1

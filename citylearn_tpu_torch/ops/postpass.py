@@ -260,13 +260,16 @@ def postpass_kernel(weights: LstmWeights, prows: torch.Tensor, schan: torch.Tens
     out = [torch.empty((S, B), dtype=torch.float32, device=dev) for _ in range(3)]
     final = [torch.empty((1, B), dtype=torch.float32, device=dev) for _ in range(5)]
     counter = torch.empty((1, B), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _launcher()(weights.flat.data_ptr(), weights.meta.data_ptr(), prows.data_ptr(),
-                      schan.data_ptr(), *[x.data_ptr() for x in series], *occ_ptrs,
-                      *[x.data_ptr() for x in out], final[0].data_ptr(), final[1].data_ptr(),
-                      counter.data_ptr(), *[x.data_ptr() for x in final[2:]],
-                      B, S, X, lookback, n_nodes, depth, block_threads(weights),
-                      stream)
+    # the launch function runs on the CUDA runtime's current device:
+    # make it the tensors' card
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher()(weights.flat.data_ptr(), weights.meta.data_ptr(), prows.data_ptr(),
+                          schan.data_ptr(), *[x.data_ptr() for x in series], *occ_ptrs,
+                          *[x.data_ptr() for x in out], final[0].data_ptr(), final[1].data_ptr(),
+                          counter.data_ptr(), *[x.data_ptr() for x in final[2:]],
+                          B, S, X, lookback, n_nodes, depth, block_threads(weights),
+                          stream)
     if err != 0:
         raise RuntimeError(f"the post-pass kernel launch failed: CUDA error {err}")
     postpass_kernel.launches += 1

@@ -395,10 +395,13 @@ def thermal_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tens
            if record else None)
     s_pad = -(-S // STAGE_CHUNK) * STAGE_CHUNK
     stage = torch.empty((B, N_STAGE, s_pad), dtype=torch.float32, device=soc0.device)
-    stream = torch.cuda.current_stream(soc0.device).cuda_stream
-    err = _launcher()(*[x.data_ptr() for x in inputs + outs],
-                      None if rec is None else rec.data_ptr(), stage.data_ptr(),
-                      D, B, S, s_pad, n_knots, hours_ratio, ratio, stream)
+    # the launch function runs on the CUDA runtime's current device:
+    # make it the tensors' card
+    with torch.cuda.device(soc0.device):
+        stream = torch.cuda.current_stream(soc0.device).cuda_stream
+        err = _launcher()(*[x.data_ptr() for x in inputs + outs],
+                          None if rec is None else rec.data_ptr(), stage.data_ptr(),
+                          D, B, S, s_pad, n_knots, hours_ratio, ratio, stream)
     if err != 0:
         raise RuntimeError(f"thermal_episode kernel launch failed: CUDA error {err}")
     thermal_episode.launches += 1

@@ -45,6 +45,22 @@ integers: whether an update runs is known on the host, so no update
 needs a device sync; the trainer syncs once per chunk, to read the
 reward sum. Unlike the JAX package's functional updates, the replay
 buffers and the networks are updated in place.
+
+Districts shard over GPUs with ``mesh=`` (a
+:class:`citylearn_tpu_torch.parallel.DistrictMesh`, one process per GPU),
+as the JAX trainer shards them over a ``dp`` mesh
+(``citylearn_tpu/train.py:295-310``): the district state, the carried
+observations and the replay's district axis hold this rank's rows only,
+while the networks and their Adam states are replicated. Every (D, ...)
+draw is made at the global D and the rank takes its rows, so a seed gives
+each district the same numbers with or without a mesh; the collect steps
+the rank's districts (K2 launches once per chunk per rank); an update
+draws the same global replay rows on every rank, each rank fills in the
+rows it owns, and one ``all_reduce`` of one flat buffer gives every rank
+the whole batch, on which every rank runs the identical update. The batch
+(~0.3 MB at 256 rows) is reduced rather than the gradients (~4-5 MB at
+256x256 for 5 agents), and a sum of one value and zeros leaves no
+reduction order to drift: the replicas stay bit-identical.
 """
 
 from __future__ import annotations
@@ -76,8 +92,14 @@ from citylearn_tpu_torch.core.obs_encoder import (
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS, batched_initial_states
 from citylearn_tpu_torch.core.step import district_step
-from citylearn_tpu_torch.core.types import EnvState
+from citylearn_tpu_torch.core.types import EnvState, map_tensors
 from citylearn_tpu_torch.ops.collect import battery_collect_chunk, prepare_battery_collect
+from citylearn_tpu_torch.parallel.mesh import (
+    all_reduce,
+    broadcast,
+    district_slice,
+    gather_districts,
+)
 
 
 class TrainConfig(NamedTuple):
@@ -196,9 +218,14 @@ class BatchedSAC:
     extra_obs_dim = 0      # policy-input dims a coordinating subclass appends
 
     def __init__(self, schema, cfg: TrainConfig = TrainConfig(), seed: int = 0,
-                 device=None, **schema_kwargs):
+                 device=None, mesh=None, **schema_kwargs):
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
+        # without a mesh, a world of one that holds every district
+        self.mesh = rollout_fast.as_mesh(mesh, device)
+        self.device = dev = self.mesh.device
+        # this rank's rows of the global district batch
+        self.rows = district_slice(self.mesh, cfg.n_districts)
+        self.n_local = self.rows.stop - self.rows.start
         schema_kwargs.setdefault("central_agent", False)
         self.spec = compile_schema(schema, **schema_kwargs)
         if self.spec.central_agent:
@@ -275,12 +302,21 @@ class BatchedSAC:
         self.use_kernel_collect = self._kernel_collect_eligible()
         if cfg.collect == "kernel" and not self.use_kernel_collect:
             raise ValueError("collect='kernel' requires a battery+PV-family config "
-                             "(rollout_fast.eligible), n_districts % 128 == 0 and no "
-                             "coordination observations")
+                             "(rollout_fast.eligible), n_districts a multiple of 128 x the "
+                             "mesh's ranks and no coordination observations")
         if self.use_kernel_collect:
             self._collect_prep = prepare_battery_collect(self.env_cfg, self.params)
 
     # ------------------------------------------------------------------
+    def _mine(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of ``x``, made at the global batch size, along
+        the district axis ``dim``."""
+        return x.narrow(dim, self.rows.start, self.n_local)
+
+    def _gathered(self, table):
+        """A KPI table of this rank's districts -> the global batch's."""
+        return {k: gather_districts(self.mesh, v) for k, v in table.items()}
+
     def _broadcast_initial(self, offsets: torch.Tensor) -> EnvState:
         st = batched_initial_states(self.env_cfg, self.params, offsets.shape[0],
                                     device=self.device)
@@ -292,22 +328,24 @@ class BatchedSAC:
     def _fresh_state(self, seed: int) -> TrainState:
         cfg = self.cfg
         A = self.env_cfg.n_buildings
-        D = cfg.n_districts
+        D, n = cfg.n_districts, self.n_local
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         nets = make_agent_nets(A, self.obs_dim, self.act_dim, list(cfg.hidden), cfg.lr,
                                gen, self.device)
         env_state = self._broadcast_initial(
-            self.draws.offsets(0, StepDraws.INIT, D, self.max_offset))
-        S = max(1, cfg.replay_capacity // D)    # replay slots (D rows each)
+            self._mine(self.draws.offsets(0, StepDraws.INIT, D, self.max_offset)))
+        # replay slots of D rows each, a rank holding its n of every slot's
+        # rows: the same slot count on every rank as without a mesh
+        S = max(1, cfg.replay_capacity // D)
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=self.device)
         return TrainState(
             env_state=env_state, nets=nets,
-            replay_obs=zeros(S, D, A * self.obs_dim),
-            replay_act=zeros(S, D, A, self.act_dim),
-            replay_rew=zeros(S, D, A),
-            replay_next=zeros(S, D, A * self.obs_dim),
-            replay_done=zeros(S, D),
+            replay_obs=zeros(S, n, A * self.obs_dim),
+            replay_act=zeros(S, n, A, self.act_dim),
+            replay_rew=zeros(S, n, A),
+            replay_next=zeros(S, n, A * self.obs_dim),
+            replay_done=zeros(S, n),
             replay_pos=0, replay_full=False, step=0,
             cur_obs=self._encoded_obs(env_state))
 
@@ -351,17 +389,32 @@ class BatchedSAC:
                                       self.action_bias, self.act_mask)
         return act.transpose(0, 1)
 
+    def _replay_rows(self, sel_s: torch.Tensor, sel_d: torch.Tensor):
+        """The replay rows (obs, act, rew, next, done) at the (slot, global
+        district) pairs. Under a mesh each rank gathers the rows it owns and
+        zeros the rest, and one ``all_reduce`` of one flat buffer gives
+        every rank the whole batch: each row is one rank's values plus
+        zeros, the same bits on every rank."""
+        ts = self.base_state
+        bufs = (ts.replay_obs, ts.replay_act, ts.replay_rew, ts.replay_next, ts.replay_done)
+        N = sel_s.shape[0]
+        local = sel_d - self.rows.start
+        owned = (local >= 0) & (local < self.n_local)
+        rows = [buf[sel_s, torch.where(owned, local, 0)].reshape(N, -1) for buf in bufs]
+        flat = all_reduce(self.mesh, torch.where(owned[:, None], torch.cat(rows, 1), 0.0))
+        parts = flat.split([r.shape[1] for r in rows], 1)
+        return [x.contiguous().view((N,) + tuple(buf.shape[2:])) for x, buf in zip(parts, bufs)]
+
     def _update(self, t: int, n_slots: int):
         """One SAC update of every agent on a batch drawn from the first
         ``n_slots`` replay slots (all districts)."""
         cfg, ts = self.cfg, self.base_state
         A, N = self.env_cfg.n_buildings, cfg.batch_size
-        sel_s, sel_d = self.draws.sample(t, N, n_slots, cfg.n_districts)
-        pick = lambda buf: buf[sel_s, sel_d]
+        obs, act, rew, nxt, done = self._replay_rows(
+            *self.draws.sample(t, N, n_slots, cfg.n_districts))
         agents_first = lambda x: x.view(N, A, -1).transpose(0, 1)
-        batch = (agents_first(pick(ts.replay_obs)), pick(ts.replay_act).transpose(0, 1),
-                 pick(ts.replay_rew).t(), agents_first(pick(ts.replay_next)),
-                 pick(ts.replay_done)[None].expand(A, N))
+        batch = (agents_first(obs), act.transpose(0, 1), rew.t(), agents_first(nxt),
+                 done[None].expand(A, N))
         sac_update(ts.nets, batch, self.draws.update_noise(t, (A, N, self.act_dim)),
                    self.action_scale, self.action_bias, self.act_mask,
                    alpha=cfg.alpha, discount=cfg.discount, tau=cfg.tau)
@@ -379,17 +432,18 @@ class BatchedSAC:
     # ------------------------------------------------------------------
     def _scan_step(self) -> torch.Tensor:
         cfg, ts = self.cfg, self.state
-        D = cfg.n_districts
+        D, n = cfg.n_districts, self.n_local
         t = ts.step
-        obs = ts.cur_obs                                       # (D, A, K)
+        obs = ts.cur_obs                                       # (n, A, K)
         explore = t < cfg.warmup_steps
         if explore:
-            a_env = self.draws.explore(t, self.act_low, self.act_high, D)
+            a_env = self._mine(self.draws.explore(t, self.act_low, self.act_high, D))
         else:
-            a_env = self._policy_actions(obs, self.draws.act_noise(t, (D,) + self.act_low.shape))
+            a_env = self._policy_actions(
+                obs, self._mine(self.draws.act_noise(t, (D,) + self.act_low.shape)))
         env_state, out = district_step(self.env_cfg, self.params, ts.env_state,
                                        self._actions_dict(a_env))
-        reward = out.reward * cfg.reward_scale                 # (D, A)
+        reward = out.reward * cfg.reward_scale                 # (n, A)
         next_obs = self._encoded_obs(env_state)
 
         # episode auto-reset with freshly drawn windows (termination is
@@ -397,14 +451,14 @@ class BatchedSAC:
         terminated = self._phase + 1 == self.env_cfg.time_steps - 1
         if terminated:
             env_state = self._broadcast_initial(
-                self.draws.offsets(t, StepDraws.RESET, D, self.max_offset))
+                self._mine(self.draws.offsets(t, StepDraws.RESET, D, self.max_offset)))
             cur_obs = self._encoded_obs(env_state)
         else:
             cur_obs = next_obs
 
         slot = ts.replay_pos
         S = ts.replay_done.shape[0]
-        self._store(slot, obs.reshape(D, -1), a_env, reward, next_obs.reshape(D, -1),
+        self._store(slot, obs.reshape(n, -1), a_env, reward, next_obs.reshape(n, -1),
                     float(terminated))
         ts.replay_pos = (slot + 1) % S
         ts.replay_full = ts.replay_full or slot + 1 >= S
@@ -427,36 +481,37 @@ class BatchedSAC:
     # updates run, where the per-step path updates after every step.
     # ------------------------------------------------------------------
     def _kernel_collect_eligible(self) -> bool:
-        # n_districts % 128 is the JAX package's lane-tile rule; it is no
-        # tile width here (K2 takes any D) and is kept so that a
+        # n_districts % (128 x shards) is the JAX package's lane-tile rule;
+        # it is no tile width here (K2 takes any D) and is kept so that a
         # configuration takes the same path in both packages
         return (self.cfg.collect != "scan"
                 and rollout_fast.eligible(self.env_cfg)
-                and self.cfg.n_districts % 128 == 0
+                and self.cfg.n_districts % (128 * self.mesh.world_size) == 0
                 and self.extra_obs_dim == 0)
 
     def _collect_chunk(self, kc: int, first_chunk: bool, do_reset: bool) -> torch.Tensor:
         cfg, ts = self.cfg, self.state
-        D, A, M = cfg.n_districts, self.env_cfg.n_buildings, self.act_dim
+        A, M = self.env_cfg.n_buildings, self.act_dim
+        D, n = cfg.n_districts, self.n_local
         t0 = ts.step
         st = ts.env_state
         steps = torch.arange(kc, device=self.device)
-        tau = (st.data_offset + st.t).long()[None, :] + steps[:, None]     # (kc, D)
-        obs = self._enc_table[tau]                                          # (kc, D, A*K)
+        tau = (st.data_offset + st.t).long()[None, :] + steps[:, None]     # (kc, n)
+        obs = self._enc_table[tau]                                          # (kc, n, A*K)
 
         # -- actions: warmup steps explore, the rest sample the chunk-start
         # policy in one sweep over all their districts --
         n_explore = min(max(cfg.warmup_steps - t0, 0), kc)
-        a_env = torch.empty((kc, D, A, M), device=self.device)
+        a_env = torch.empty((kc, n, A, M), device=self.device)
         for k in range(n_explore):
-            a_env[k] = self.draws.explore(t0 + k, self.act_low, self.act_high, D)
+            a_env[k] = self._mine(self.draws.explore(t0 + k, self.act_low, self.act_high, D))
         if n_explore < kc:
-            noise = torch.stack([self.draws.act_noise(t0 + k, (D, A, M))
+            noise = torch.stack([self._mine(self.draws.act_noise(t0 + k, (D, A, M)))
                                  for k in range(n_explore, kc)])
-            n = kc - n_explore
+            n_act = kc - n_explore
             a_env[n_explore:] = self._policy_actions(
-                obs[n_explore:].reshape(n * D, A, -1), noise.view(n * D, A, M)
-            ).view(n, D, A, M)
+                obs[n_explore:].reshape(n_act * n, A, -1), noise.view(n_act * n, A, M)
+            ).view(n_act, n, A, M)
 
         # -- env recurrence: one K2 launch over the chunk --
         es = torch.einsum("kdam,am->kda", a_env,
@@ -466,17 +521,17 @@ class BatchedSAC:
             self._collect_prep, es.contiguous(), ser.non_shiftable_load[tau],
             ser.solar_generation[tau], st.battery_soc, st.battery_efficiency,
             st.battery_degraded_capacity, first_chunk=first_chunk)
-        reward = rew_b * cfg.reward_scale                                  # (kc, D, A)
+        reward = rew_b * cfg.reward_scale                                  # (kc, n, A)
 
         # next_obs: the following step's row (pre-reset at the episode
         # boundary, as the per-step path stores it)
-        obs_next_last = self._enc_table[tau[-1] + 1]                        # (D, A*K)
+        obs_next_last = self._enc_table[tau[-1] + 1]                        # (n, A*K)
         next_obs = torch.cat([obs[1:], obs_next_last[None]])
 
         # -- replay ring writes --
         S = ts.replay_done.shape[0]
         slot = ts.replay_pos
-        done = torch.zeros((kc, D), device=self.device)
+        done = torch.zeros((kc, n), device=self.device)
         if do_reset:
             done[-1] = 1.0
         self._store((slot + steps) % S, obs, a_env, reward, next_obs, done)
@@ -492,14 +547,14 @@ class BatchedSAC:
 
         # -- post-chunk env state + carried observation --
         if do_reset:
-            ts.env_state = self._broadcast_initial(
-                self.draws.offsets(t0 + kc - 1, StepDraws.RESET, D, self.max_offset))
+            ts.env_state = self._broadcast_initial(self._mine(
+                self.draws.offsets(t0 + kc - 1, StepDraws.RESET, D, self.max_offset)))
             ts.cur_obs = self._encoded_obs(ts.env_state)
         else:
             ts.env_state = dataclasses.replace(
                 st, t=st.t + kc, battery_soc=soc, battery_efficiency=eff,
                 battery_degraded_capacity=deg)
-            ts.cur_obs = obs_next_last.view(D, A, -1)
+            ts.cur_obs = obs_next_last.view(n, A, -1)
         ts.step = t0 + kc
         return reward.sum()
 
@@ -513,7 +568,7 @@ class BatchedSAC:
         while left > 0:
             kc = min(left, self.cfg.collect_chunk, S_ep - self._phase, S_slots)
             do_reset = self._phase + kc == S_ep
-            total += float(self._collect_chunk(kc, self._phase == 0, do_reset))
+            total += float(all_reduce(self.mesh, self._collect_chunk(kc, self._phase == 0, do_reset)))
             self._phase = 0 if do_reset else self._phase + kc
             left -= kc
         return total
@@ -523,7 +578,8 @@ class BatchedSAC:
         """Run ``n_steps`` env steps of collect+update; returns the mean
         summed reward per step of each chunk. Battery+PV-family configs
         take the chunked kernel collect (``use_kernel_collect``); others
-        the per-step path."""
+        the per-step path. Under a mesh the rewards are summed over
+        every rank's districts."""
         history = []
         remaining = n_steps
         while remaining > 0:
@@ -531,8 +587,8 @@ class BatchedSAC:
             if self.use_kernel_collect:
                 history.append(self._train_kernel_chunk(n) / n)
             else:
-                history.append(float(torch.stack([self._scan_step()
-                                                  for _ in range(n)]).mean()))
+                history.append(float(all_reduce(self.mesh, torch.stack([self._scan_step()
+                                                                        for _ in range(n)])).mean()))
             remaining -= n
         return history
 
@@ -549,16 +605,20 @@ class BatchedSAC:
         an RBC baseline to compare the learned policy against): that
         evaluation runs on fresh default-window districts and, on
         kernel-eligible configurations, as one whole-episode kernel launch
-        through the ``evaluate_districts`` dispatch."""
-        D = self.cfg.n_districts
-        if policy is not None:
-            states = batched_initial_states(self.env_cfg, self.params, D, device=self.device)
-            return evaluate_districts(self.env_cfg, self.params, states, policy, n_steps,
-                                      baseline_condition, device=self.device)
+        through the ``evaluate_districts`` dispatch.
 
-        fresh = self._broadcast_initial(
-            self.draws.offsets(self.state.step, StepDraws.EVAL, D, self.max_offset))
-        zeros = torch.zeros((D,) + self.act_low.shape, device=self.device)
+        Under a mesh each rank evaluates its districts and the tables are
+        gathered: every rank returns the global batch's."""
+        D, n = self.cfg.n_districts, self.n_local
+        if policy is not None:
+            states = batched_initial_states(self.env_cfg, self.params, n, device=self.device)
+            return self._gathered(evaluate_districts(
+                self.env_cfg, self.params, states, policy, n_steps, baseline_condition,
+                device=self.device))
+
+        fresh = self._broadcast_initial(self._mine(
+            self.draws.offsets(self.state.step, StepDraws.EVAL, D, self.max_offset)))
+        zeros = torch.zeros((n,) + self.act_low.shape, device=self.device)
 
         def policy_fn(params, states):
             with torch.no_grad():
@@ -568,13 +628,28 @@ class BatchedSAC:
                     self.act_mask)
             return self._actions_dict(det.transpose(0, 1))
 
-        return evaluate_districts(self.env_cfg, self.params, fresh, policy_fn, n_steps,
-                                  baseline_condition, device=self.device)
+        return self._gathered(evaluate_districts(self.env_cfg, self.params, fresh, policy_fn,
+                                                 n_steps, baseline_condition,
+                                                 device=self.device))
 
     # ------------------------------------------------------------------
+    def _write(self, write):
+        """Run ``write()`` on rank 0 alone, while the mesh's other ranks
+        wait until it has written (and raise if it failed)."""
+        done = torch.zeros(1, device=self.device)
+        try:
+            if self.mesh.rank == 0:
+                write()
+            done += 1
+        finally:
+            broadcast(self.mesh, done)
+        if not float(done):
+            raise RuntimeError("rank 0 failed to write")
+
     def save(self, path: str):
-        """Write the networks and their Adam states."""
-        torch.save(self.base_state.nets.state_dict(), path)
+        """Write the networks and their Adam states (replicated under a
+        mesh: rank 0 writes)."""
+        self._write(lambda: torch.save(self.base_state.nets.state_dict(), path))
 
     def load(self, path: str):
         self.base_state.nets.load_state_dict(torch.load(path, map_location=self.device))
@@ -586,23 +661,35 @@ class BatchedSAC:
 
     def save_checkpoint(self, directory: str):
         """Write the complete :class:`TrainState`; :meth:`restore_checkpoint`
-        resumes from it bit-exactly."""
+        resumes from it bit-exactly. Under a mesh the district state and
+        the replay are gathered and rank 0 writes the global batch's, which
+        restores into a trainer on any number of ranks."""
         ts = self.state
-        os.makedirs(directory, exist_ok=True)
-        torch.save({"env_state": dataclasses.asdict(ts.env_state),
-                    "nets": ts.nets.state_dict(),
-                    **{k: getattr(ts, k) for k in TrainState.BUFFERS},
-                    "replay_pos": ts.replay_pos, "replay_full": ts.replay_full,
-                    "step": ts.step, "seed": self.draws.seed},
-                   os.path.join(directory, self.CHECKPOINT))
+        gather = lambda x, dim=0: gather_districts(self.mesh, x, dim)
+        saved = {"env_state": dataclasses.asdict(map_tensors(gather, ts.env_state)),
+                 "nets": ts.nets.state_dict(),
+                 # the replay's district axis is its second
+                 **{k: gather(getattr(ts, k), 0 if k == "cur_obs" else 1)
+                    for k in TrainState.BUFFERS},
+                 "replay_pos": ts.replay_pos, "replay_full": ts.replay_full,
+                 "step": ts.step, "seed": self.draws.seed}
+
+        def write():
+            os.makedirs(directory, exist_ok=True)
+            torch.save(saved, os.path.join(directory, self.CHECKPOINT))
+        self._write(write)
 
     def restore_checkpoint(self, directory: str):
         saved = torch.load(os.path.join(directory, self.CHECKPOINT),
                            map_location=self.device)
+        if saved["cur_obs"].shape[0] != self.cfg.n_districts:
+            raise ValueError(f"the checkpoint holds {saved['cur_obs'].shape[0]} districts, "
+                             f"the trainer {self.cfg.n_districts}")
+        mine = lambda x, dim=0: self._mine(x, dim).contiguous()
         self.state.nets.load_state_dict(saved["nets"])
         self.draws = StepDraws(saved["seed"], self.device)
         self.load_state(TrainState(
-            env_state=EnvState(**saved["env_state"]), nets=self.state.nets,
-            **{k: saved[k] for k in TrainState.BUFFERS},
+            env_state=map_tensors(mine, EnvState(**saved["env_state"])), nets=self.state.nets,
+            **{k: mine(saved[k], 0 if k == "cur_obs" else 1) for k in TrainState.BUFFERS},
             replay_pos=saved["replay_pos"], replay_full=saved["replay_full"],
             step=saved["step"]))

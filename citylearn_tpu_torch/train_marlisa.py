@@ -24,6 +24,12 @@ reference, as in the JAX package:
   the policy directly.
 - **Exploration-phase coordination variables are zero.**
 
+Under a district mesh (``mesh=``, as :class:`BatchedSAC` takes it) the
+ring runs on each rank's districts, which it never leaves, and the step's
+increments of the ridge's normal equations are summed over the ranks
+(one ``all_reduce``), so that every rank holds the same accumulators and
+solves to the same weights.
+
 Transitions are stored delayed by one step, so that the stored next
 observation carries the coordination variables its action saw; a
 transition that crosses an episode reset is dropped. Every step runs the
@@ -43,6 +49,7 @@ from citylearn_tpu_torch import resolve_device
 from citylearn_tpu_torch.agents.sac import policy_sample
 from citylearn_tpu_torch.core.evaluate import evaluate_districts
 from citylearn_tpu_torch.core.step import district_step
+from citylearn_tpu_torch.parallel.mesh import all_reduce
 from citylearn_tpu_torch.train import (
     BatchedSAC,
     StepDraws,
@@ -139,7 +146,7 @@ class BatchedMARLISA(BatchedSAC):
         return np.asarray([c / total for c in esc], np.float32), float(total)
 
     def _init_state(self, seed: int):
-        D, A = self.cfg.n_districts, self.env_cfg.n_buildings
+        n, A = self.n_local, self.env_cfg.n_buildings
         esc, total = self._energy_coefficients()
         self.energy_size_coefficient = torch.tensor(esc, device=self.device)
         self.total_coefficient = float(total)
@@ -150,10 +157,10 @@ class BatchedMARLISA(BatchedSAC):
         self.reg_dim = F
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=self.device)
         self.load_state(MarlisaTrainState(
-            base=self._fresh_state(seed), cv=zeros(D, A, COORD_VARS),
+            base=self._fresh_state(seed), cv=zeros(n, A, COORD_VARS),
             reg_xtx=zeros(A, F, F), reg_xty=zeros(A, F), reg_w=zeros(A, F),
-            prev_obs=zeros(D, A, self.obs_dim), prev_act=zeros(D, A, self.act_dim),
-            prev_rew=zeros(D, A), prev_valid=False))
+            prev_obs=zeros(n, A, self.obs_dim), prev_act=zeros(n, A, self.act_dim),
+            prev_rew=zeros(n, A), prev_valid=False))
 
     @property
     def base_state(self) -> TrainState:
@@ -201,17 +208,17 @@ class BatchedMARLISA(BatchedSAC):
     def _scan_step(self) -> torch.Tensor:
         cfg, ms = self.cfg, self.state
         ts = ms.base
-        D, A = cfg.n_districts, self.env_cfg.n_buildings
+        D, n, A = cfg.n_districts, self.n_local, self.env_cfg.n_buildings
         t = ts.step
-        obs_enc = self._encoded_obs(ts.env_state)                      # (D, A, K0)
+        obs_enc = self._encoded_obs(ts.env_state)                      # (n, A, K0)
         explore = t < cfg.warmup_steps
         # the ring starts from zero coordination variables at every step
         # (reference marlisa.py:302-306); it runs during warmup too
         a_ring, cv_used = self._coordination_ring(
             ts.nets.policy, obs_enc, torch.zeros_like(ms.cv), ms.reg_w,
-            self.draws.ring_noise(t, (self.iterations, A, D, self.act_dim)))
+            self._mine(self.draws.ring_noise(t, (self.iterations, A, D, self.act_dim)), 2))
         if explore:
-            a_env = self.draws.explore(t, self.act_low, self.act_high, D)
+            a_env = self._mine(self.draws.explore(t, self.act_low, self.act_high, D))
             cv_used = torch.zeros_like(cv_used)
         else:
             a_env = a_ring
@@ -219,13 +226,18 @@ class BatchedMARLISA(BatchedSAC):
 
         env_state, out = district_step(self.env_cfg, self.params, ts.env_state,
                                        self._actions_dict(a_env))
-        reward = out.reward * cfg.reward_scale                         # (D, A)
+        reward = out.reward * cfg.reward_scale                         # (n, A)
 
         # streaming ridge regression of the step's true net consumption
-        feats = torch.cat([obs_enc, a_env, obs_enc.new_ones((D, A, 1))], dim=-1)
-        ms.reg_xtx = ms.reg_xtx + torch.einsum("daf,dag->afg", feats, feats)
-        ms.reg_xty = ms.reg_xty + torch.einsum("daf,da->af", feats,
-                                               out.net_electricity_consumption)
+        feats = torch.cat([obs_enc, a_env, obs_enc.new_ones((n, A, 1))], dim=-1)
+        d_xtx = torch.einsum("daf,dag->afg", feats, feats)
+        d_xty = torch.einsum("daf,da->af", feats, out.net_electricity_consumption)
+        # every rank's districts in one sum, the same on every rank
+        F = d_xty.shape[1]
+        flat = all_reduce(self.mesh, torch.cat([d_xtx.reshape(A, F * F), d_xty], 1))
+        d_xtx, d_xty = flat[:, :F * F].reshape(A, F, F), flat[:, F * F:].contiguous()
+        ms.reg_xtx = ms.reg_xtx + d_xtx
+        ms.reg_xty = ms.reg_xty + d_xty
         if (t + 1) % self.regression_update_every == 0:
             ms.reg_w = ridge_solve(ms.reg_xtx, ms.reg_xty)
 
@@ -234,15 +246,15 @@ class BatchedMARLISA(BatchedSAC):
         terminated = self._phase + 1 == self.env_cfg.time_steps - 1
         if terminated:
             env_state = self._broadcast_initial(
-                self.draws.offsets(t, StepDraws.RESET, D, self.max_offset))
+                self._mine(self.draws.offsets(t, StepDraws.RESET, D, self.max_offset)))
 
         # the previous step's transition, whose next observation is this
         # step's with the coordination variables its action saw
         S = ts.replay_done.shape[0]
         if ms.prev_valid:
             slot = ts.replay_pos
-            self._store(slot, ms.prev_obs.reshape(D, -1), ms.prev_act, ms.prev_rew,
-                        obs_cv.reshape(D, -1), 0.0)
+            self._store(slot, ms.prev_obs.reshape(n, -1), ms.prev_act, ms.prev_rew,
+                        obs_cv.reshape(n, -1), 0.0)
             ts.replay_pos = (slot + 1) % S
             ts.replay_full = ts.replay_full or slot + 1 >= S
 
@@ -263,18 +275,19 @@ class BatchedMARLISA(BatchedSAC):
         the same ring at ``deterministic=True``): the policy was trained on
         ring-made coordination variables, so it is evaluated on them too.
         Fresh districts with freshly drawn windows, as
-        :meth:`BatchedSAC.evaluate`."""
-        D, A = self.cfg.n_districts, self.env_cfg.n_buildings
+        :meth:`BatchedSAC.evaluate` (gathered under a mesh)."""
+        D, n, A = self.cfg.n_districts, self.n_local, self.env_cfg.n_buildings
         ts = self.base_state
-        fresh = self._broadcast_initial(
-            self.draws.offsets(ts.step, StepDraws.EVAL, D, self.max_offset))
-        cv0 = torch.zeros((D, A, COORD_VARS), device=self.device)
-        noise = torch.zeros((self.iterations, A, D, self.act_dim), device=self.device)
+        fresh = self._broadcast_initial(self._mine(
+            self.draws.offsets(ts.step, StepDraws.EVAL, D, self.max_offset)))
+        cv0 = torch.zeros((n, A, COORD_VARS), device=self.device)
+        noise = torch.zeros((self.iterations, A, n, self.act_dim), device=self.device)
 
         def policy_fn(params, states):
             acts, _ = self._coordination_ring(ts.nets.policy, self._encoded_obs(states), cv0,
                                               self.state.reg_w, noise, deterministic=True)
             return self._actions_dict(acts)
 
-        return evaluate_districts(self.env_cfg, self.params, fresh, policy_fn, n_steps,
-                                  baseline_condition, device=self.device)
+        return self._gathered(evaluate_districts(self.env_cfg, self.params, fresh, policy_fn,
+                                                 n_steps, baseline_condition,
+                                                 device=self.device))

@@ -16,6 +16,7 @@ root on an AVX-512 CPU can miss it by an ulp, the card's never does.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import inspect
 import re
@@ -62,7 +63,10 @@ def wrapper(module, name: str, lib: ctypes.CDLL):
         src = src.replace(old, new)
     src, n = re.subn(r"torch\.cuda\.current_stream\(\w+\.device\)\.cuda_stream", "None", src)
     assert n == 1, "the wrapper names no stream"
-    namespace = dict(vars(module), _emulated_launcher=fn)
+    # the launch runs under its tensors' card; the emulation has none
+    src, n = re.subn(r"torch\.cuda\.device\(\w+(\.device)?\)", "contextlib.nullcontext()", src)
+    assert n == 1, "the wrapper launches under no device"
+    namespace = dict(vars(module), _emulated_launcher=fn, contextlib=contextlib)
     exec(compile(src, f"<emulated {name}>", "exec"), namespace)
     emulated = namespace[name]
     emulated.launches = 0
