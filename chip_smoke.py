@@ -5,8 +5,9 @@ thermal-storage district's evaluation (K3), the EV district's (K4), the
 LSTM-dynamics district's (K5) and the neighborhood districts' (K6 and the
 post-pass P6), then training on every family and batched MARLISA, the Gym
 env, the user's entry point, ``citylearn_tpu_torch.cli``, with the
-host-loop agents, and last the district mesh over ranks of
-``torch.distributed``.
+host-loop agents, the district mesh over ranks of ``torch.distributed``,
+and last the autosized districts, the debug physics checks, the profiler
+and dataset generation with LSTM training on the card.
 
     python3 chip_smoke.py [--json PATH]
     python3 chip_smoke.py --cards N [--json PATH]   # phase 30(c) alone, on N cards
@@ -214,13 +215,33 @@ Phases, each of which raises on failure:
      battery+PV ``evaluate_scripted`` and one 64-step ``BatchedSAC`` chunk
      with updates bit-equal to the run without a mesh. Two ranks share one
      card: its times are no multi-GPU speed.
-     (c) with ``--cards N`` (N > 1), instead of phases 3-30: N ranks, one
+     (c) with ``--cards N`` (N > 1), instead of phases 3-31: N ranks, one
      on each card, joined through ``initialize_distributed()``'s defaults
      (nccl, ``env://``) and placed by ``district_mesh()``'s
      (``cuda:$LOCAL_RANK``), run (a)'s evaluation and training at D=4096,
      each rank's single process on its own card; and every kernel of the
      path (K1, K2, K3, K4, K5, K6, P6) launched on the rank's card while
      another card is current, bit-equal to the launch with its own current.
+ 31. the rest of the package: (a) the thermal district with every device
+     autosized (HVAC devices, tanks, battery from a seeded
+     ``battery_choices.yaml``, PV from a seeded EPW file) and the
+     battery+PV district with battery and PV autosized, each size
+     printed, their full-year ``evaluate_scripted`` at D=4096 through one
+     K3 and one K1 launch and their kernel-backed tables at 168 steps
+     against the stepped ones; (b) 168 stepped battery+PV steps at D=4096
+     with the debug physics checks on, a corrupted SOC that must raise
+     ``PhysicsCheckError``, the ms per step with the checks off and on;
+     (c) ``utilities.Profiler`` around a full-year K1 evaluation in a
+     spawned process, whose trace must name K1's kernels inside the
+     ``battery_episode`` range;
+     (d) ``Neighborhood().build`` of 3 buildings x 8760 steps with 2
+     partial-load simulations, the LSTMs trained on the card at
+     ``LSTM_CONFIG``'s width (H=4, 2 layers, lookback 13, batch 168, 13
+     channels) for 4 of its 144 epochs, ms per Adam step and seconds of
+     the build; the generated dataset's full-year ``evaluate_scripted`` at
+     D=4096 as built (the default reward: K6 and P6) and with the
+     ComfortReward (K5), each table against the stepped one at 168 steps
+     and K5's temperature against the stepped path's.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi name and power
 limit, and last ``{"ok": true, "device": {...}}``; ``--json PATH`` also
@@ -270,7 +291,9 @@ from citylearn_tpu_torch.ops import neighborhood as k6
 from citylearn_tpu_torch.ops import postpass as p6
 from citylearn_tpu_torch.ops import thermal as k3
 from citylearn_tpu_torch.synthetic import (
+    write_battery_choices,
     write_battery_pv_dataset,
+    write_epw,
     write_ev_dataset,
     write_lstm_dataset,
     write_neighborhood_dataset,
@@ -292,6 +315,12 @@ from citylearn_tpu_torch.envs import environment
 from citylearn_tpu_torch.envs.environment import CityLearnEnv
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 from citylearn_tpu_torch.train_marlisa import BatchedMARLISA
+from citylearn_tpu_torch.core import debug
+from citylearn_tpu_torch.core.step import district_step
+from citylearn_tpu_torch.end_use_load_profiles import Neighborhood
+from citylearn_tpu_torch.end_use_load_profiles import build as gen_build
+from citylearn_tpu_torch.end_use_load_profiles import lstm as gen_lstm
+from citylearn_tpu_torch.utilities import Profiler
 
 DEVICE = "cuda"
 D = 4096                      # districts per batch
@@ -2477,6 +2506,321 @@ def mesh_path(dev, results):
     return launched
 
 
+GEN_SAMPLES = 3               # the README's build: sample_count=3, partial_loads_simulations=2
+GEN_PARTIAL = 2
+GEN_EPOCHS = 4                # LSTM_CONFIG's 144 epochs cut to what phase 31's budget holds
+AUTOSIZE_DEVICES = ("electrical_storage", "pv", "cooling_device", "heating_device",
+                    "dhw_device", "cooling_storage", "heating_storage", "dhw_storage")
+
+
+def autosized(schema_path, devices, epw_seed=SEED):
+    """Set ``autosize`` on ``devices`` of every building that has them,
+    point PV at a seeded ``weather.epw`` beside the schema, rewrite it."""
+    root = os.path.dirname(schema_path)
+    write_epw(os.path.join(root, "weather.epw"), seed=epw_seed)
+    with open(schema_path) as f:
+        schema = json.load(f)
+    for b in schema["buildings"].values():
+        for key in devices:
+            if b.get(key) is not None:
+                b[key]["autosize"] = True
+        if "pv" in devices and b.get("pv") is not None:
+            b["pv"]["autosize_attributes"] = {"epw_filepath": "weather.epw"}
+    with open(schema_path, "w") as f:
+        json.dump(schema, f, indent=2)
+    return schema_path
+
+
+def stepped_temperature(cfg, params, policy, n_steps, dev):
+    """District 0's predicted indoor temperature over ``n_steps`` of the
+    stepped ``district_step`` under ``policy``: (n_steps, B)."""
+    fn = policy.as_policy_fn(cfg, params, n_steps)
+    states = batched_initial_states(cfg, params, 1, device=dev)
+    temps = []
+    for _ in range(n_steps):
+        states, out = district_step(cfg, params, states, fn(params, states))
+        temps.append(out.indoor_temperature[0])
+    return torch.stack(temps)
+
+
+def trace_names_kernel(trace_path, annotation, kernel_names):
+    """Whether the Chrome trace at ``trace_path`` holds CUDA kernel events
+    of every name in ``kernel_names``, each inside the card's side of the
+    ``annotation`` range. Returns (ok, what was found)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and any(k in e.get("name", "") for k in kernel_names)]
+    marks = [e for e in events if e.get("name") == annotation
+             and e.get("cat") == "gpu_user_annotation"]
+    inside = lambda e: any(m["ts"] <= e["ts"] and e["ts"] + e["dur"] <= m["ts"] + m["dur"]
+                           for m in marks)
+    found = {k: sum(k in e["name"] and inside(e) for e in kernels) for k in kernel_names}
+    return all(found.values()), dict(kernels=found, annotations=len(marks))
+
+
+def profiled_year(rank, device, out_path):
+    """Phase 31(c) in a fresh process (``torch.multiprocessing`` spawn): the
+    battery+PV year through ``evaluate_scripted`` at D inside
+    ``utilities.Profiler``, its trace checked by ``trace_names_kernel``.
+    A process that has run for minutes loses the first kernel events of
+    its traces, more the longer it has run, so the check runs where the
+    profiler starts as a user's script does. Writes the result to
+    ``out_path``."""
+    dev = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        schema = write_battery_pv_dataset(tmp, N_BUILDINGS, N_ROWS, SEED)
+        cfg, params, _ = pack(compile_schema(schema), device=dev)
+        policy = ScriptedPolicy({"electrical_storage": basic_rbc_table()})
+        k1.battery_episode.launches = 0
+        with Profiler(tmp) as prof:
+            evaluate_scripted(cfg, params, policy, n_districts=D, device=dev)
+        if not os.path.isfile(prof.trace_path):
+            raise AssertionError("the profiler wrote no trace")
+        ok, found = trace_names_kernel(prof.trace_path, "battery_episode",
+                                       ("prelude_kernel", "district_kernel"))
+        result = dict(ok=ok, found=found, launches=k1.battery_episode.launches,
+                      trace_mb=os.path.getsize(prof.trace_path) / 2 ** 20)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def tools_path(dev, results):
+    """Phase 31: autosized districts, the debug physics checks, the
+    profiler and dataset generation. Returns the main path's launches of
+    each kernel."""
+    phase("31. autosize, debug checks, profiler, dataset generation")
+    t_phase = time.perf_counter()
+    launched = {}
+    count = lambda kernels: {k.__name__: k.launches for k in kernels}
+
+    # (a) autosized thermal and battery+PV districts through K3 and K1
+    with tempfile.TemporaryDirectory() as tmp:
+        misc = os.path.join(tmp, "misc")
+        write_battery_choices(misc, seed=SEED)
+        thermal_dir, battery_dir = os.path.join(tmp, "thermal"), os.path.join(tmp, "battery")
+        thermal_schema = autosized(write_thermal_dataset(thermal_dir, THERMAL_BUILDINGS, N_ROWS,
+                                                         SEED), AUTOSIZE_DEVICES)
+        battery_schema = autosized(write_battery_pv_dataset(battery_dir, N_BUILDINGS, N_ROWS,
+                                                            SEED), ("electrical_storage", "pv"))
+        shipped_misc = os.environ.get("CITYLEARN_MISC_ROOT")
+        os.environ["CITYLEARN_MISC_ROOT"] = misc
+        try:
+            t0 = time.perf_counter()
+            specs = {"thermal": compile_schema(thermal_schema),
+                     "battery": compile_schema(battery_schema)}
+            compile_s = time.perf_counter() - t0
+        finally:
+            if shipped_misc is None:
+                del os.environ["CITYLEARN_MISC_ROOT"]
+            else:
+                os.environ["CITYLEARN_MISC_ROOT"] = shipped_misc
+    print(f"(a) autosized districts compiled in {compile_s:.2f} s")
+    for name, spec in specs.items():
+        for b in spec.buildings:
+            sizes = {"cooling_device": b.cooling_device.nominal_power,
+                     "dhw_device": b.dhw_device.nominal_power,
+                     "cooling_storage": b.cooling_storage.capacity,
+                     "dhw_storage": b.dhw_storage.capacity,
+                     "battery": (b.battery.capacity, b.battery.nominal_power),
+                     "pv": b.pv_nominal_power}
+            if name == "battery":
+                sizes = {k: sizes[k] for k in ("battery", "pv")}
+            print(f"  {name} {b.name}: " + ", ".join(
+                f"{k} {v if isinstance(v, tuple) else round(v, 4)}" for k, v in sizes.items()))
+            solar = torch.from_numpy(b.series["solar_generation"])
+            if not b.pv_nominal_power > 0 or not torch.isfinite(solar).all():
+                raise AssertionError(f"{name} {b.name}: PV autosize gave no array")
+        if name == "thermal" and not all(b.cooling_storage.capacity_npf32
+                                         for b in spec.buildings):
+            raise AssertionError("a cooling tank was not autosized")
+    autosize = {}
+    for name, spec, kernel, tables, eligible_fn in (
+            ("thermal", specs["thermal"], k3.thermal_episode, thermal_rbc_tables(),
+             eligible_thermal),
+            ("battery", specs["battery"], k1.battery_episode,
+             {"electrical_storage": basic_rbc_table()}, eligible)):
+        cfg, params, _ = pack(spec, device=dev)
+        if not eligible_fn(cfg):
+            raise AssertionError(f"the autosized {name} district is not kernel-eligible")
+        policy = ScriptedPolicy(tables)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        table = evaluate_scripted(cfg, params, policy, n_districts=D, device=dev)
+        torch.cuda.synchronize()
+        year_s = time.perf_counter() - t0
+        check_table(table, (), f"autosized {name} evaluate_scripted", cfg.n_buildings)
+        if kernel.launches != 1:
+            raise AssertionError(f"autosized {name}: evaluate_scripted launched "
+                                 f"{kernel.__name__} {kernel.launches} times")
+        launched[kernel.__name__] = launched.get(kernel.__name__, 0) + kernel.launches
+        states = batched_initial_states(cfg, params, D, device=dev)
+        fast = evaluate_districts(cfg, params, states, policy, n_steps=SHORT_STEPS, device=dev)
+        stepped = evaluate_districts(cfg, params, states,
+                                     policy.as_policy_fn(cfg, params, SHORT_STEPS),
+                                     n_steps=SHORT_STEPS, device=dev)
+        worst = table_error(fast, stepped)
+        autosize[name] = dict(year_s=year_s, table_error=worst,
+                              cost_total=float(table["district|cost_total"]))
+        print(f"  {name}: full-year evaluate_scripted at D={D} through {kernel.__name__} "
+              f"(1 launch) in {year_s:.3f} s, cost_total {autosize[name]['cost_total']:.6f}; "
+              f"kernel vs stepped KPI table at S={SHORT_STEPS}: max error {worst:.3e} "
+              f"(tolerance {TOL_TABLE:g})")
+        if name == "battery":
+            battery_cfg, battery_params, battery_policy = cfg, params, policy
+
+    # (b) the debug physics checks on 168 stepped battery+PV steps at D
+    cfg, params, policy = battery_cfg, battery_params, battery_policy
+    states = batched_initial_states(cfg, params, D, device=dev)
+    stepped = lambda: evaluate_districts(cfg, params, states,
+                                         policy.as_policy_fn(cfg, params, SHORT_STEPS),
+                                         n_steps=SHORT_STEPS, device=dev)
+    off_ms = time_cuda(stepped, 2) / SHORT_STEPS
+    debug.enable_checks(True)
+    try:
+        checked = stepped()
+        on_ms = time_cuda(stepped, 2) / SHORT_STEPS
+        bad = dataclasses.replace(states, battery_soc=torch.full_like(states.battery_soc, 2.5))
+        try:
+            district_step(cfg, params, bad, policy.as_policy_fn(cfg, params, 1)(params, bad))
+        except debug.PhysicsCheckError as e:
+            message = str(e)
+        else:
+            raise AssertionError("a corrupted battery SOC passed the physics checks")
+    finally:
+        debug.enable_checks(False)
+    check_table(checked, (D,), "evaluate_districts with the physics checks")
+    if not message.startswith("physics invariant violated: soc_prev_in_[0,1]"):
+        raise AssertionError(f"the corrupted state raised {message!r}")
+    print(f"(b) {SHORT_STEPS} stepped battery+PV steps at D={D} with the physics checks on: "
+          f"passed; {off_ms:.3f} ms a step with the checks off, {on_ms:.3f} ms on "
+          f"({on_ms / off_ms:.2f}x); a battery SOC of 2.5 raised {message!r}")
+
+    # (c) the profiler around one full-year K1 evaluation, in a fresh process
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "profiled.json")
+        torch.multiprocessing.spawn(profiled_year, args=(DEVICE, out), nprocs=1, join=True)
+        with open(out) as f:
+            profiled = json.load(f)
+    if not profiled["ok"]:
+        raise AssertionError(f"the trace does not name battery_episode's kernels: {profiled}")
+    launched["battery_episode"] += profiled["launches"]
+    print(f"(c) Profiler trace of a full-year evaluate_scripted ({profiled['trace_mb']:.2f} MiB, "
+          f"a fresh process): K1's kernels inside the card's battery_episode annotation: "
+          f"{profiled['found']}")
+
+    # (d) dataset generation at LSTM_CONFIG's width, trained on the card
+    fits = []
+    shipped_fit = gen_lstm.fit_lstm
+
+    def timed_fit(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = shipped_fit(*args, **kw)
+        torch.cuda.synchronize()
+        fits.append((time.perf_counter() - t0, losses))
+        return state, losses
+
+    gen_root = tempfile.TemporaryDirectory()
+    gen_lstm.fit_lstm = timed_fit
+    try:
+        t0 = time.perf_counter()
+        built = Neighborhood().build(gen_root.name, sample_count=GEN_SAMPLES,
+                                     n_time_steps=N_ROWS,
+                                     partial_loads_simulations=GEN_PARTIAL,
+                                     lstm_kwargs=dict(epochs=GEN_EPOCHS), random_seed=SEED,
+                                     device=dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        gen_lstm.fit_lstm = shipped_fit
+    steps = sum(len(losses) for _, losses in fits)
+    train_s = sum(t for t, _ in fits)
+    per_epoch = len(fits[0][1]) // GEN_EPOCHS
+    for _, losses in fits:
+        if losses.device.type != dev.type or not torch.isfinite(losses).all():
+            raise AssertionError(f"the LSTM did not train on {dev} to finite losses")
+        if not float(losses[-per_epoch:].mean()) < float(losses[:per_epoch].mean()):
+            raise AssertionError(f"the LSTM loss did not fall: {losses.tolist()}")
+    rows = built.citylearn_simulation_test_evaluation
+    defined = [r["value"] for r in rows if r["value"] is not None and not math.isnan(r["value"])]
+    if not defined or not all(map(math.isfinite, defined)):
+        raise AssertionError("the generated dataset's smoke run gave no finite KPI rows")
+    adam_ms = train_s / steps * 1e3
+    print(f"(d) Neighborhood().build: {GEN_SAMPLES} buildings {built.bldg_ids} (cluster labels "
+          f"{built.sample_cluster_labels}) x {N_ROWS} steps, {GEN_PARTIAL} partial-load "
+          f"simulations each, LSTM hidden {gen_build.LSTM_CONFIG['hidden']} x "
+          f"{gen_build.LSTM_CONFIG['num_layers']} layers, lookback "
+          f"{gen_build.LSTM_CONFIG['lookback']}, batch {gen_build.LSTM_CONFIG['batch_size']}, "
+          f"lr {gen_build.LSTM_CONFIG['lr']}, {len(gen_build.LSTM_CHANNELS)} channels, "
+          f"{GEN_EPOCHS} of {gen_build.LSTM_CONFIG['epochs']} epochs: {build_s:.2f} s in all "
+          f"({build_s / GEN_SAMPLES:.2f} s a building), of which LSTM training "
+          f"{train_s:.2f} s over {steps} Adam steps = {adam_ms:.3f} ms a step; loss "
+          f"{float(fits[0][1][:per_epoch].mean()):.5f} -> "
+          f"{float(fits[0][1][-per_epoch:].mean()):.5f} (building 1, first and last epoch); "
+          f"smoke run {len(rows)} KPI rows")
+    # the generated dataset as built (the default reward: the neighborhood
+    # kernels serve it, in the JAX package's dispatch too) and with the
+    # ComfortReward of the LSTM family (K5)
+    with open(built.schema_filepath) as f:
+        schema = json.load(f)
+    comfort = dict(schema, reward_function={
+        "type": "citylearn.reward_function.ComfortReward", "attributes": None})
+    plans = {k: v for k, v in lstm_plans().items() if k in ("cooling_device",
+                                                             "electrical_storage")}
+    generated = {}
+    for name, sch, kernels in (
+            ("as built", schema, (k6.neighborhood_episode, p6.postpass_kernel)),
+            ("ComfortReward", comfort, (k5.lstm_episode,))):
+        cfg, params, _ = pack(compile_schema(sch), device=dev)
+        policy = ScriptedPolicy(plans)
+        for kernel in kernels:
+            kernel.launches = 0
+        table = evaluate_scripted(cfg, params, policy, n_districts=D, device=dev)
+        torch.cuda.synchronize()
+        counts = count(kernels)
+        if set(counts.values()) != {1}:
+            raise AssertionError(f"generated ({name}): evaluate_scripted launched {counts}")
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+        check_table(table, (), f"generated ({name}) evaluate_scripted", cfg.n_buildings)
+        states = batched_initial_states(cfg, params, D, device=dev)
+        fast = evaluate_districts(cfg, params, states, policy, n_steps=SHORT_STEPS, device=dev)
+        stepped = evaluate_districts(cfg, params, states,
+                                     policy.as_policy_fn(cfg, params, SHORT_STEPS),
+                                     n_steps=SHORT_STEPS, device=dev)
+        worst, worst_comfort = table_error(fast, stepped, COMFORT_STEPS)
+        generated[name] = dict(launches=counts, table_error=worst, comfort_error=worst_comfort)
+        line = (f"  generated, {name}: full-year evaluate_scripted at D={D} through {counts}; "
+                f"kernel vs stepped KPI table at S={SHORT_STEPS}: max error {worst:.3e} "
+                f"(tolerance {TOL_TABLE:g}), discomfort and resilience {worst_comfort:.3e} "
+                f"(tolerance {COMFORT_STEPS} steps in {SHORT_STEPS})")
+        if name == "ComfortReward":
+            lookback, layers, hidden, channels = cfg.dyn_groups[0][:4]
+            rec = rollout_fast.run_lstm_episode(cfg, params, 1, plans, n_steps=SHORT_STEPS,
+                                                record_series=True, device=dev)[-1]
+            ours, ref = rec[k5.R_TEMP], stepped_temperature(cfg, params, policy,
+                                                            SHORT_STEPS, dev)
+            temp = float((ours - ref).abs().max())
+            if not ((ours - ref).abs() <= TEMP_RTOL * ref.abs() + TEMP_ATOL).all():
+                raise AssertionError(f"generated: K5's temperature is off the stepped path's "
+                                     f"by {temp}")
+            generated[name]["temperature_error"] = temp
+            line += (f"; K5 (H={hidden}, {layers} layers, lookback {lookback}, {channels} "
+                     f"channels) temperature vs the stepped path's over {SHORT_STEPS} steps: "
+                     f"max|diff| {temp:.3e} C (tolerance {TEMP_RTOL:g} |T| + {TEMP_ATOL:g})")
+        print(line)
+    gen_root.cleanup()
+    results.update(tools_autosize=autosize, tools_autosize_compile_s=compile_s,
+                   tools_check_off_ms_per_step=off_ms,
+                   tools_check_on_ms_per_step=on_ms, tools_trace=profiled,
+                   tools_build_s=build_s, tools_build_s_per_building=build_s / GEN_SAMPLES,
+                   tools_train_s=train_s, tools_adam_steps=steps, tools_adam_ms=adam_ms,
+                   tools_generated=generated, tools_launches=launched,
+                   tools_s=time.perf_counter() - t_phase)
+    print(f"phase 31: launches {launched}; {results['tools_s']:.1f} s; {nvidia_smi()}")
+    return launched
+
+
 def cards_main(n_cards, json_path=None):
     """Phase 30(c) alone: ``n_cards`` NCCL ranks, one on each card, each
     joined through ``initialize_distributed()``'s defaults (torchrun's
@@ -2838,6 +3182,7 @@ def main(json_path=None):
     env_path(dev, results)
     cli_launches = cli_path(dev, results)
     mesh_launches = mesh_path(dev, results)
+    tools_launches = tools_path(dev, results)
 
     kernels = {"kernels": [{
         "name": "battery_episode", "route": "cuda",
@@ -2854,10 +3199,10 @@ def main(json_path=None):
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
         "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels]}
-    # the main path's launches of phases 29 and 30 beside each row's own
+    # the main path's launches of phases 29, 30 and 31 beside each row's own
     row_of = {"postpass_kernel": "neighborhood_postpass"}
     for row in kernels["kernels"]:
-        row["launches"] += sum(n for launched in (cli_launches, mesh_launches)
+        row["launches"] += sum(n for launched in (cli_launches, mesh_launches, tools_launches)
                                for k, n in launched.items() if row_of.get(k, k) == row["name"])
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -6,9 +6,10 @@ electric vehicles, washing machines and charging constraints, and LSTM
 temperature dynamics with power outages, and occupant thermostat
 interaction): the same device resolution, series defaults, noise stream
 and observation/action surface, with CSVs read by the standard ``csv``
-module instead of pandas. Schema blocks outside those districts raise
-``NotImplementedError`` naming the block: autosizing. Missing HVAC devices and tanks
-resolve to the same inert defaults as in the JAX package.
+module instead of pandas, and the same autosizing of HVAC devices, tanks,
+batteries (``battery_choices.yaml``) and PV (:mod:`.pv_autosize`) over
+the simulation range. Missing HVAC devices and tanks resolve to the same
+inert defaults as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 
 from citylearn_tpu_torch.compiler import seeding
 from citylearn_tpu_torch.compiler.spaces import (
+    _hvac_input_power_np,
     estimate_action_space,
     estimate_observation_space_limits,
 )
@@ -332,13 +334,6 @@ def _load_occupant(block: dict, root: str, sim_start: int, sim_end: int) -> Occu
     )
 
 
-def _unsupported(block: str, building: str = None):
-    where = f" (building {building})" if building else ""
-    raise NotImplementedError(
-        f"schema block '{block}'{where} is not supported by the PyTorch "
-        "port yet")
-
-
 def _resolve_hvac(block: Optional[dict], seed: Optional[int]) -> HVACDeviceSpec:
     if block is None:
         # Missing device: the reference constructs HeatPump(0.0)/ElectricHeater(0.0)
@@ -421,6 +416,74 @@ def _resolve_battery(block: Optional[dict], seed: Optional[int],
     spec.power_efficiency_curve_x, spec.power_efficiency_curve_y = seeding.pad_curve(pec, CURVE_PAD)
     spec.capacity_power_curve_x, spec.capacity_power_curve_y = seeding.pad_curve(cpc, CURVE_PAD)
     return spec
+
+
+def read_battery_choices() -> Dict[str, list]:
+    """``battery_choices.yaml`` (:func:`citylearn_tpu_torch.data.misc_file`)
+    as columns: ``model`` and each attribute, in the file's order (the
+    reference's ``DataFrame([{"model": k, **v["attributes"]}, ...])``)."""
+    import yaml
+
+    from citylearn_tpu_torch.data import misc_file
+
+    path = misc_file("battery_choices.yaml")
+    if path is None:
+        raise FileNotFoundError("battery_choices.yaml not found; set CITYLEARN_MISC_ROOT")
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    rows = [{"model": k, **v["attributes"]} for k, v in raw.items()]
+    names = list(dict.fromkeys(k for r in rows for k in r))
+    return {k: [r.get(k) for r in rows] for k in names}
+
+
+def _autosize_battery(spec: BatterySpec, series: Dict[str, np.ndarray],
+                      sim_start: int, sim_end: int, cooling_device, heating_device,
+                      dhw_device, seed: int, time_step_ratio: float):
+    """Battery autosize by sampling a real manufacturer model
+    (reference ``building.py:2405-2424``, ``energy_model.py:1143-1226``)
+    from ``battery_choices.yaml``."""
+    sl = slice(sim_start, sim_end + 1)
+    t_out = series["outdoor_dry_bulb_temperature"][sl]
+    baseline = (
+        _hvac_input_power_np(cooling_device, series["cooling_demand"][sl], t_out, False)
+        + _hvac_input_power_np(heating_device, series["heating_demand"][sl], t_out, True)
+        + _hvac_input_power_np(dhw_device, series["dhw_demand"][sl], t_out, True)
+        + series["non_shiftable_load"][sl])
+    # daily-peak mean; the reference's day grouping reduces to groups of 24
+    # steps regardless of cadence (building.py:2416: spt*24/spt)
+    n = len(baseline)
+    groups = np.arange(n) // 24
+    demand = float(np.mean([baseline[groups == g].max()
+                            for g in range(groups[-1] + 1)]))
+
+    # the reference's DataFrame: numeric columns as float64, a missing or
+    # null attribute as NaN (energy_model.py:1190-1226)
+    table = read_battery_choices()
+    models = table.pop("model")
+    cols = {k: np.array([np.nan if v is None else v for v in vals], np.float64)
+            for k, vals in table.items()}
+    demand_r = demand * time_step_ratio
+    duration = seeding.resolve(None, (1.5, 3.5), seed)
+    rows = np.flatnonzero(cols["nominal_power"] <= demand_r)
+    if len(rows) == 0:
+        # sort_values("nominal_power").iloc[0:1]: pandas' quicksort argsort
+        rows = np.argsort(cols["nominal_power"], kind="quicksort")[:1]
+    choice = np.random.RandomState(seed).choice([models[i] for i in rows])
+    i = next(i for i in rows if models[i] == choice)
+    row = {k: v[i] for k, v in cols.items()}
+    target = demand_r * duration * 1.0
+    unit_count = max(1, int(np.floor(target / row["capacity"])))
+    spec.capacity = float(row["capacity"]) * unit_count
+    spec.nominal_power = float(row["nominal_power"])  # parallel=False quirk
+    # autosized values come off a DataFrame row as strong np.float64
+    spec.capacity_weak = False
+    spec.dod_weak = False
+    spec.depth_of_discharge = seeding.resolve(row["depth_of_discharge"], 1.0, seed)
+    spec.efficiency = seeding.resolve(row["efficiency"], (0.90, 0.98), seed)
+    spec.loss_coefficient = seeding.resolve(
+        row["loss_coefficient"], (0.001, 0.009), seed) * time_step_ratio
+    spec.capacity_loss_coefficient = seeding.resolve(
+        row["capacity_loss_coefficient"], (1e-5, 1e-4), seed)
 
 
 def _null_battery() -> BatterySpec:
@@ -588,11 +651,6 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
             return seeding.device_random_seed(
                 b_name, b_type, device_name, block["type"], schema_random_seed)
 
-        for key in ("electrical_storage", "pv", "cooling_device", "heating_device",
-                    "dhw_device", "cooling_storage", "heating_storage", "dhw_storage"):
-            if (b_schema.get(key) or {}).get("autosize"):
-                _unsupported(f"{key}.autosize", b_name)
-
         bat_block = b_schema.get("electrical_storage")
         battery = (_resolve_battery(bat_block, dev_seed("electrical_storage", bat_block),
                                     time_step_ratio)
@@ -621,6 +679,97 @@ def compile_schema(schema_path_or_dict, root_directory: str = None, **overrides)
         cooling_storage = _resolve_storage_tank(cs_block, dev_seed("cooling_storage", cs_block), time_step_ratio)
         heating_storage = _resolve_storage_tank(hs_block, dev_seed("heating_storage", hs_block), time_step_ratio)
         dhw_storage = _resolve_storage_tank(ds_block, dev_seed("dhw_storage", ds_block), time_step_ratio)
+
+        # --- autosizing (reference building.py:2284-2404, energy_model.py
+        #     autosize methods) over the simulation range ------------------
+        sim_sl = slice(sim_start, sim_end + 1)
+        outdoor_t = series["outdoor_dry_bulb_temperature"][sim_sl]
+
+        def _autosize_hvac(block, dev: HVACDeviceSpec, demand_key: str, heating: bool):
+            if not (block or {}).get("autosize"):
+                return
+            kwargs = block.get("autosize_attributes") or {}
+            safety = kwargs.get("safety_factor")
+            safety = 1.0 if safety is None else float(safety)
+            # reference dtype flow (energy_model.py:309-352 under NumPy 2):
+            # f32 demand series * STRONG np.float64 time_step_ratio -> f64;
+            # the Carnot COP over the f32 outdoor array with weak Python
+            # float parameters stays FLOAT32; f64/f32 -> f64; the autosized
+            # result is stored as np.float32 — one f32 rounding at the end
+            demand64 = np.asarray(series[demand_key][sim_sl], np.float64) * float(time_step_ratio)
+            if dev.is_heat_pump:
+                target = (dev.target_heating_temperature if heating
+                          else dev.target_cooling_temperature)
+                t32 = np.asarray(outdoor_t, np.float32)
+                denom = np.asarray((target - t32) if heating
+                                   else (t32 - target), np.float32)
+                num = dev.efficiency * (target + 273.15)     # weak py float
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    cop = (num / denom).astype(np.float32)
+                cop[cop < 0] = 20
+                cop[cop > 20] = 20
+                cop[~np.isfinite(cop)] = 20
+                dev.nominal_power = float(np.float32(
+                    np.nanmax(demand64 / cop) * safety))
+            else:
+                dev.nominal_power = float(np.float32(
+                    np.nanmax(demand64 / dev.efficiency) * safety))
+
+        def _autosize_tank(block, tank: StorageTankSpec, demand_key: str, seed):
+            if not (block or {}).get("autosize"):
+                return
+            kwargs = block.get("autosize_attributes") or {}
+            safety = seeding.resolve(kwargs.get("safety_factor"), (1.0, 2.0), seed)
+            demand = series[demand_key][sim_sl] * time_step_ratio
+            tank.capacity = float(np.nanmax(demand) * safety)
+            # np.nanmax over the float32 demand series stays np.float32 in
+            # the reference, so soc*cap AND action*cap both round to f32
+            tank.capacity_npf32 = True
+
+        _autosize_hvac(cool_block, cooling_device, "cooling_demand", False)
+        _autosize_hvac(heat_block, heating_device, "heating_demand", True)
+        _autosize_hvac(dhw_block, dhw_device, "dhw_demand", True)
+        _autosize_tank(cs_block, cooling_storage, "cooling_demand",
+                       dev_seed("cooling_storage", cs_block))
+        _autosize_tank(hs_block, heating_storage, "heating_demand",
+                       dev_seed("heating_storage", hs_block))
+        _autosize_tank(ds_block, dhw_storage, "dhw_demand",
+                       dev_seed("dhw_storage", ds_block))
+
+        if (bat_block or {}).get("autosize"):
+            _autosize_battery(
+                battery, series, sim_start, sim_end, cooling_device, heating_device,
+                dhw_device, dev_seed("electrical_storage", bat_block), time_step_ratio)
+        if (pv_block or {}).get("autosize"):
+            # reference autosize_pv (building.py:2426-2441): annual mean of
+            # the baseline consumption estimate sized against a sampled PV
+            # design simulated over the dataset's EPW weather file
+            from citylearn_tpu_torch.compiler.pv_autosize import autosize_pv
+
+            baseline = (
+                _hvac_input_power_np(cooling_device, series["cooling_demand"][sim_sl],
+                                     outdoor_t, False)
+                + _hvac_input_power_np(heating_device, series["heating_demand"][sim_sl],
+                                       outdoor_t, True)
+                + _hvac_input_power_np(dhw_device, series["dhw_demand"][sim_sl],
+                                       outdoor_t, True)
+                + series["non_shiftable_load"][sim_sl])
+            # year grouping is 8760 steps irrespective of cadence
+            # (building.py:2437: spt*24*365/spt)
+            years = np.arange(len(baseline)) // (24 * 365)
+            demand = float(np.mean([baseline[years == y].sum()
+                                    for y in range(int(years[-1]) + 1)]))
+            kwargs = dict(pv_block.get("autosize_attributes") or {})
+            epw_path = os.path.join(root, kwargs.pop("epw_filepath"))
+            pv_nominal, ac_per_kw = autosize_pv(
+                demand, epw_path, dev_seed("pv", pv_block),
+                use_sample_target=kwargs.get("use_sample_target"),
+                zero_net_energy_proportion=kwargs.get("zero_net_energy_proportion"),
+                roof_area=kwargs.get("roof_area"),
+                safety_factor=kwargs.get("safety_factor"),
+                sizing_data=kwargs.get("sizing_data"))
+            reps = -(-n // len(ac_per_kw))   # tile if the sim spans >1 year
+            series["solar_generation"] = np.tile(ac_per_kw, reps)[:n].astype(np.float32)
 
         # --- chargers + washing machines --------------------------------
         chargers: List[ChargerSpec] = []

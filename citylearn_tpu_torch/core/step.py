@@ -44,7 +44,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from citylearn_tpu_torch.core import hvac
+from citylearn_tpu_torch.core import debug, hvac
 from citylearn_tpu_torch.core.battery import battery_charge
 from citylearn_tpu_torch.core.curves import interp_linear
 from citylearn_tpu_torch.core.dynamics import lstm_predict
@@ -725,6 +725,32 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     if cfg.has_occupant:
         cooling_sp, heating_sp, occ_state = occupant_update(
             cfg, params, state, cooling_sp, heating_sp, hvac_mode, temp_t, t)
+
+    # ---- debug-mode physics assertions (reference building.py:1825-1834,
+    # 657-665): built only when debug.enable_checks(True) was called ----
+    if debug.checks_enabled():
+        eps = 1e-3
+        in_unit = lambda *socs: torch.stack(
+            [(s >= -eps) & (s <= 1 + eps) for s in socs]).all(0)
+        checks = {
+            "soc_prev_in_[0,1]": in_unit(
+                state.battery_soc, state.cooling_storage_soc,
+                state.heating_storage_soc, state.dhw_storage_soc),
+            "soc_new_in_[0,1]": in_unit(bat.soc, cool.soc, heat.soc, dhw.soc),
+            # device apply-phase consumption >= 0 (building.py:1831-1834)
+            "consumption_nonnegative": (
+                (cool.apply_consumption >= -eps) & (heat.apply_consumption >= -eps)
+                & (dhw.apply_consumption >= -eps) & (nsl_met >= -eps)),
+            # met demand never exceeds requested demand (building.py:1825)
+            "output_at_most_demand": (
+                (cool.device_output <= cooling_demand + eps)
+                & (heat.device_output <= heating_demand + eps)
+                & (dhw.device_output <= dhw_demand + eps)),
+            "net_finite": torch.isfinite(net),
+        }
+        if cfg.has_evs:
+            checks["ev_soc_in_[0,1]"] = in_unit(ev.ev_soc)
+        debug.runtime_check(checks)
 
     new_state = EnvState(
         t=t + 1,

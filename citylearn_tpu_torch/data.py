@@ -6,6 +6,10 @@ variable), the ``data/datasets`` directory of an installed reference
 ``citylearn`` package (found without importing it), and the user cache
 ``~/.cache/citylearn_tpu/datasets``. Nothing is downloaded: a name found
 in no root raises ``FileNotFoundError`` listing the roots searched.
+
+The autosize's sizing files (``battery_choices.yaml``, the LBL PV sample)
+are searched in ``CITYLEARN_MISC_ROOT``, then in the ``data/misc``
+directory of an installed reference ``citylearn`` package.
 """
 
 from __future__ import annotations
@@ -14,11 +18,11 @@ import importlib.util
 import json
 import os
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
-def _reference_roots() -> List[str]:
-    """``data/datasets`` beside or inside an installed ``citylearn`` package."""
+def _reference_roots(kind: str = "datasets") -> List[str]:
+    """``data/<kind>`` beside or inside an installed ``citylearn`` package."""
     try:
         spec = importlib.util.find_spec("citylearn")
     except (ImportError, ValueError):
@@ -26,8 +30,17 @@ def _reference_roots() -> List[str]:
     if spec is None or not spec.origin:
         return []
     package = os.path.dirname(spec.origin)
-    return [os.path.join(package, "data", "datasets"),
-            os.path.join(os.path.dirname(package), "data", "datasets")]
+    return [os.path.join(package, "data", kind),
+            os.path.join(os.path.dirname(package), "data", kind)]
+
+
+def misc_file(filename: str) -> Optional[str]:
+    """The first of ``CITYLEARN_MISC_ROOT`` and the reference package's
+    ``data/misc`` that holds ``filename``, read when called; else None."""
+    for root in [os.environ.get("CITYLEARN_MISC_ROOT"), *_reference_roots("misc")]:
+        if root and os.path.isfile(os.path.join(root, filename)):
+            return os.path.join(root, filename)
+    return None
 
 
 def default_roots() -> List[str]:
@@ -46,20 +59,22 @@ class DataSet:
         self.roots = [r for r in (roots or default_roots()) if r]
 
     # -- sizing data (reference data.py:191-259) ------------------------
-    def get_battery_sizing_data(self):
-        """The reference reads its bundled ``battery_choices.yaml`` to
-        autosize batteries; the port's compiler does not autosize and the
-        repository does not carry the file."""
-        raise NotImplementedError(
-            f"battery sizing data ({self.BATTERY_CHOICES_FILENAME}) is not in the repository "
-            "and the port's compiler does not autosize: give the battery's capacity and "
-            "nominal power in the schema")
+    def get_battery_sizing_data(self) -> Dict[str, list]:
+        """Real-world battery manufacturer models from ``battery_choices.yaml``
+        (:func:`misc_file`): the column ``model`` and one column per
+        attribute, in the file's order (reference ``data.py:224-259``,
+        there a DataFrame indexed by model)."""
+        from citylearn_tpu_torch.compiler.schema import read_battery_choices
 
-    def get_pv_sizing_data(self):
-        """As :meth:`get_battery_sizing_data`, for the PV sample of the reference."""
-        raise NotImplementedError(
-            f"PV sizing data ({self.PV_CHOICES_FILENAME}) is not in the repository and the "
-            "port's compiler does not autosize: give the PV's nominal power in the schema")
+        return read_battery_choices()
+
+    def get_pv_sizing_data(self) -> Dict[str, object]:
+        """The LBL Tracking-the-Sun residential-PV sample as numpy columns
+        when a local copy is found, else the seeded synthetic stand-in
+        (reference ``data.py:191-226`` downloads it)."""
+        from citylearn_tpu_torch.compiler.pv_autosize import get_pv_sizing_data
+
+        return get_pv_sizing_data()
 
     # -- datasets -------------------------------------------------------
     def get_dataset_names(self) -> List[str]:

@@ -18,6 +18,9 @@ follows an LSTM model (weights in a ``.pth`` file beside the CSVs), a
 cooling heat pump under the ``cooling_device`` action, DHW heater and
 tank, battery and PV, the ``ComfortReward`` and, on request, power
 outages.
+:func:`write_epw` writes an hourly EnergyPlus weather file and
+:func:`write_battery_choices` a ``battery_choices.yaml`` of manufacturer
+battery models, the two inputs of the PV and battery autosize.
 The series are smooth daily and seasonal profiles with seeded noise;
 they stand in for the bundled CityLearn data when it is not installed.
 """
@@ -849,3 +852,82 @@ def write_neighborhood_dataset(root: str, n_buildings: int = 100, n_rows: int = 
     return _write_schema(root, n_rows, seed, OBSERVATIONS + NEIGHBORHOOD_OBSERVATIONS,
                          {"cooling_or_heating_device", "electrical_storage"}, buildings,
                          action_names=LSTM_ACTIONS)
+
+
+def write_epw(path: str, seed: int = 0, latitude: float = 37.67, longitude: float = -122.12,
+              timezone: float = -8.0, elevation: float = 10.0) -> str:
+    """Write a seeded hourly EnergyPlus weather file (EPW) of one
+    non-leap year to ``path`` and return it: the eight header records
+    (``LOCATION`` with the site's latitude, longitude, time zone and
+    elevation first), then 8760 data records of 35 fields, hour-ending
+    1-24. Dry-bulb temperature (field 6), global horizontal (13), direct
+    normal (14) and diffuse horizontal (15) irradiance follow the sun's
+    elevation at the site under seeded cloud cover; wind speed (21) is
+    seeded. The same arguments always write the same file."""
+    rng = np.random.RandomState(seed)
+    n = 8760
+    t = np.arange(n)
+    day, hour = t // 24, t % 24 + 1
+    month_days = [31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31]
+    month = np.repeat(np.arange(1, 13), month_days)[day]
+    dom = day - np.concatenate(([0], np.cumsum(month_days)))[month - 1] + 1
+    # the sun at mid-hour (declination and hour angle; no equation of time)
+    decl = np.radians(23.45) * np.sin(2 * np.pi * (284 + day + 1) / 365)
+    solar_time = hour - 0.5 + (longitude - 15.0 * timezone) / 15.0
+    ha = np.radians(15.0 * (solar_time - 12.0))
+    lat = np.radians(latitude)
+    cos_zen = np.sin(lat) * np.sin(decl) + np.cos(lat) * np.cos(decl) * np.cos(ha)
+    up = np.clip(cos_zen, 0.0, None)
+    clear = np.repeat(rng.uniform(0.35, 1.0, n // 24), 24)            # daily cloud cover
+    dni = np.round(900.0 * clear * up ** 0.3 * (up > 0.02))
+    dhi = np.round((60.0 + 120.0 * (1.0 - clear)) * up ** 0.8 * (up > 0))
+    ghi = np.round(dni * up + dhi)
+    season = np.cos(2 * np.pi * (day - 200) / 365)
+    temp = np.round(14.0 + 6.0 * season + 4.0 * np.sin(2 * np.pi * (hour - 9) / 24)
+                    + rng.normal(0, 1.0, n), 1)
+    dew = np.round(temp - rng.uniform(2.0, 8.0, n), 1)
+    rh = np.clip(np.round(100.0 - 4.0 * (temp - dew)), 5, 100)
+    wind = np.round(rng.gamma(2.0, 1.5, n), 1)
+    header = [
+        f"LOCATION,Synthetic,CA,USA,synthetic,000000,{latitude:.2f},{longitude:.2f},"
+        f"{timezone:.1f},{elevation:.1f}",
+        "DESIGN CONDITIONS,0", "TYPICAL/EXTREME PERIODS,0", "GROUND TEMPERATURES,0",
+        "HOLIDAYS/DAYLIGHT SAVINGS,No,0,0,0", "COMMENTS 1,seeded synthetic weather",
+        "COMMENTS 2,", "DATA PERIODS,1,1,Data,Sunday, 1/ 1,12/31"]
+    with open(path, "w") as f:
+        f.write("\n".join(header) + "\n")
+        for i in range(n):
+            fields = [2001, month[i], dom[i], hour[i], 60, "?9?9?9?9E0?9?9?9?9?9?9?9?9?9?9?9?9",
+                      f"{temp[i]:.1f}", f"{dew[i]:.1f}", f"{rh[i]:.0f}", 101300, 0, 1415, 300,
+                      f"{ghi[i]:.0f}", f"{dni[i]:.0f}", f"{dhi[i]:.0f}", 0, 0, 0, 0, 180,
+                      f"{wind[i]:.1f}", 5, 5, 9999, 77777, 9, 999999999, 0, 0.1, 0, 88, 0.2,
+                      0, 1]
+            f.write(",".join(str(v) for v in fields) + "\n")
+    return path
+
+
+def write_battery_choices(directory: str, seed: int = 0, n_models: int = 8) -> str:
+    """Write ``battery_choices.yaml`` under ``directory`` and return its
+    path: ``n_models`` seeded manufacturer models in the reference's shape
+    ``{model: {attributes: {capacity, nominal_power, depth_of_discharge,
+    efficiency, loss_coefficient, capacity_loss_coefficient}}}``, in
+    plain YAML text (no YAML library needed to write it). Nominal powers
+    span 1-5 kW, so that a household's daily peak of 2-5 kW picks among
+    several."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "battery_choices.yaml")
+    with open(path, "w") as f:
+        for m in range(n_models):
+            attrs = {
+                "capacity": round(float(rng.uniform(2.0, 16.0)), 1),
+                "nominal_power": round(float(rng.uniform(1.0, 5.0)), 1),
+                "depth_of_discharge": round(float(rng.uniform(0.8, 1.0)), 2),
+                "efficiency": round(float(rng.uniform(0.88, 0.97)), 3),
+                "loss_coefficient": round(float(rng.uniform(0.001, 0.009)), 4),
+                "capacity_loss_coefficient": round(float(rng.uniform(1e-5, 1e-4)), 6),
+            }
+            f.write(f"Model_{m + 1}:\n  attributes:\n")
+            for k, v in attrs.items():
+                f.write(f"    {k}: {v:.6f}\n")
+    return path

@@ -1,10 +1,50 @@
-"""Noise utilities (reference ``citylearn/utilities.py``)."""
+"""IO, noise and profiling utilities (reference ``citylearn/utilities.py``)."""
 
 from __future__ import annotations
 
-from typing import Iterable, Union
+import json
+import os
+import pickle
+from typing import Any, Iterable, Union
 
 import numpy as np
+
+
+class FileHandler:
+    @staticmethod
+    def read_json(filepath: str) -> dict:
+        with open(filepath) as f:
+            return json.load(f)
+
+    @staticmethod
+    def write_json(filepath: str, data: dict, **kwargs):
+        kwargs.setdefault("indent", 2)
+        with open(filepath, "w") as f:
+            json.dump(data, f, default=str, **kwargs)
+
+    @staticmethod
+    def read_yaml(filepath: str) -> dict:
+        import yaml
+
+        with open(filepath) as f:
+            return yaml.safe_load(f)
+
+    @staticmethod
+    def write_yaml(filepath: str, data: dict, **kwargs):
+        import yaml
+
+        with open(filepath, "w") as f:
+            yaml.safe_dump(data, f, **kwargs)
+
+    @staticmethod
+    def read_pickle(filepath: str) -> Any:
+        with open(filepath, "rb") as f:
+            return pickle.load(f)
+
+    @staticmethod
+    def write_pickle(filepath: str, data: Any, **kwargs):
+        with open(filepath, "wb") as f:
+            pickle.dump(data, f, **kwargs)
 
 
 class NoiseUtils:
@@ -37,3 +77,39 @@ class NoiseUtils:
         def noise(n: int) -> np.ndarray:
             return NoiseUtils.generate_gaussian_noise(np.empty(n), noise_std, rng)
         return noise
+
+
+class Profiler:
+    """``torch.profiler`` around a hot region: host operations, and the
+    card's kernels when CUDA is available, written as a Chrome trace
+    (``trace.json`` under ``log_dir``) when the block ends::
+
+        with Profiler("/tmp/trace") as p:
+            evaluate_scripted(cfg, params, policy, n_districts=4096)
+        p.trace_path, p.profile.key_averages()
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.trace_path = os.path.join(log_dir, "trace.json")
+        self.profile = None
+
+    def __enter__(self):
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profile = torch.profiler.profile(activities=activities)
+        self.profile.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.profile.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.profile.export_chrome_trace(self.trace_path)
+        return False

@@ -113,8 +113,11 @@ def test_dataset_catalog(schemas, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="none of the roots") as err:
         cat.get_dataset("citylearn_challenge_2022_phase_1")
     assert str(a) in str(err.value) and str(b) in str(err.value)
-    with pytest.raises(NotImplementedError, match="battery_choices"):
+    # the sizing files: none under an empty misc root
+    monkeypatch.setenv("CITYLEARN_MISC_ROOT", str(a))
+    with pytest.raises(FileNotFoundError, match="battery_choices"):
         cat.get_battery_sizing_data()
+    assert len(cat.get_pv_sizing_data()["tilt_1"]) == 500         # the synthetic stand-in
     monkeypatch.setenv("CITYLEARN_DATA_ROOT", str(b))
     assert DataSet().roots[0] == str(b) and "thermal_y" in DataSet().get_dataset_names()
     monkeypatch.setattr(sys, "argv", ["citylearn-tpu-torch"])

@@ -55,16 +55,27 @@ def test_spec_equals_jax(schema_path, central_agent):
     assert ours.observation_names() == ref.observation_names()
 
 
-def test_unsupported_blocks_raise(schema_path):
+def test_unsupported_blocks_raise(schema_path, tmp_path, monkeypatch):
+    """What the JAX package's compiler refuses, the port refuses with the
+    same exception: a battery autosize without ``battery_choices.yaml``
+    and a dynamics block on a plain building (autosize itself compiles:
+    ``tests/test_torch_autosize.py``)."""
     import json
 
     with open(schema_path) as f:
         schema = json.load(f)
     schema["root_directory"] = os.path.dirname(schema_path)
-    b = next(iter(schema["buildings"].values()))
-    b["electrical_storage"]["autosize"] = True
-    with pytest.raises(NotImplementedError, match="electrical_storage.autosize"):
-        compile_schema(schema)
+    monkeypatch.setenv("CITYLEARN_MISC_ROOT", str(tmp_path))
+    sized = json.loads(json.dumps(schema))
+    next(iter(sized["buildings"].values()))["electrical_storage"]["autosize"] = True
+    dynamic = json.loads(json.dumps(schema))
+    next(iter(dynamic["buildings"].values()))["dynamics"] = {
+        "type": "citylearn.dynamics.LSTMDynamics", "attributes": {}}
+    for bad, error, match in ((sized, FileNotFoundError, "battery_choices.yaml"),
+                              (dynamic, NotImplementedError, "with dynamics")):
+        for compile_fn in (compile_schema, jax_compile):
+            with pytest.raises(error, match=match):
+                compile_fn(bad)
 
 
 def test_port_imports_no_jax():

@@ -1,9 +1,11 @@
 """The port's package surface on the CPU: every name ``_EXPORTS`` lists
 resolves on import, and importing every module of the package loads
-neither JAX nor the JAX package nor pandas nor scikit-learn nor gymnasium
-(the card's machine has none of them; scikit-learn is imported by
-``pickle`` only when an occupant's decision trees are read, pandas and
-gymnasium by the Gym env only where its frame and spaces are built)."""
+neither JAX nor optax nor the JAX package nor pandas nor scikit-learn nor
+gymnasium nor PyYAML nor PySAM (the card's machine has none of them but
+PyYAML; scikit-learn is imported by ``pickle`` only when an occupant's
+decision trees are read, pandas and gymnasium by the Gym env only where
+its frame and spaces are built, PyYAML by the functions that read or
+write YAML, PySAM by the PV autosize only)."""
 
 import importlib
 import pkgutil
@@ -41,7 +43,8 @@ def test_modules_import_no_jax_pandas_or_sklearn():
     code = ("import sys, importlib\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'citylearn_tpu', 'pandas', 'sklearn', 'gymnasium')]\n"
+            "('jax', 'optax', 'citylearn_tpu', 'pandas', 'sklearn', 'gymnasium', "
+            "'yaml', 'PySAM')]\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, cwd=citylearn_tpu_torch.__path__[0] + "/..")
