@@ -49,6 +49,11 @@ Districts shard over GPUs, one process per GPU under ``torch.distributed``
 ``evaluate_scripted``, ``BatchedSAC`` and ``BatchedMARLISA`` take
 ``mesh=``, and each rank runs its share of the districts on its card.
 
+``tracing`` records spans at the trainer's, the update's,
+the Gym step's and the kernel wrappers' boundaries inside a
+``tracing.recording()`` block or a ``utilities.Profiler``; off, the
+default, a span is one flag test.
+
 The package imports ``torch`` and never ``jax`` nor the JAX package.
 Entry points take a ``device`` argument: ``None`` means the CUDA card,
 and raises when there is none; pass ``device="cpu"`` to run the plain

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from citylearn_tpu_torch import resolve_device
+from citylearn_tpu_torch import resolve_device, tracing
 from citylearn_tpu_torch.agents.rbc import RBC, BasicRBC
 from citylearn_tpu_torch.agents.rlc import RLC
 from citylearn_tpu_torch.preprocessing import RemoveFeature, encode
@@ -265,7 +265,7 @@ def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
     parameter's ``.grad`` holds the gradient applied."""
     o, a, r, n, d = batch
     noise_next, noise_pi = noise
-    with torch.no_grad():
+    with tracing.span("sac.target"), torch.no_grad():
         next_a, next_log_pi, _ = policy_sample(nets.policy, n, noise_next,
                                                action_scale, action_bias, act_mask)
         tq = torch.minimum(nets.q1_target(n, next_a), nets.q2_target(n, next_a)) \
@@ -273,23 +273,25 @@ def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
         q_target = r[..., None] + (1 - d[..., None]) * discount * tq
 
     losses = {}
-    for name in ("q1", "q2"):
-        q, opt = getattr(nets, name), getattr(nets, f"{name}_opt")
-        loss = huber_loss(q(o, a), q_target).mean(dim=(1, 2))
-        params = list(q.parameters())
-        _adam_step(opt, params, torch.autograd.grad(loss.sum(), params))
-        losses[name] = loss.detach()
+    with tracing.span("sac.critic"):
+        for name in ("q1", "q2"):
+            q, opt = getattr(nets, name), getattr(nets, f"{name}_opt")
+            loss = huber_loss(q(o, a), q_target).mean(dim=(1, 2))
+            params = list(q.parameters())
+            _adam_step(opt, params, torch.autograd.grad(loss.sum(), params))
+            losses[name] = loss.detach()
 
     # the policy loss reads the UPDATED Q nets; no gradient flows into them
-    new_a, log_pi, _ = policy_sample(nets.policy, o, noise_pi, action_scale,
-                                     action_bias, act_mask)
-    q_new = torch.minimum(nets.q1(o, new_a), nets.q2(o, new_a))
-    loss = (alpha * log_pi - q_new).mean(dim=(1, 2))
-    params = list(nets.policy.parameters())
-    _adam_step(nets.policy_opt, params, torch.autograd.grad(loss.sum(), params))
-    losses["policy"] = loss.detach()
+    with tracing.span("sac.policy"):
+        new_a, log_pi, _ = policy_sample(nets.policy, o, noise_pi, action_scale,
+                                         action_bias, act_mask)
+        q_new = torch.minimum(nets.q1(o, new_a), nets.q2(o, new_a))
+        loss = (alpha * log_pi - q_new).mean(dim=(1, 2))
+        params = list(nets.policy.parameters())
+        _adam_step(nets.policy_opt, params, torch.autograd.grad(loss.sum(), params))
+        losses["policy"] = loss.detach()
 
-    with torch.no_grad():
+    with tracing.span("sac.polyak"), torch.no_grad():
         for tgt, src in ((nets.q1_target, nets.q1), (nets.q2_target, nets.q2)):
             t, s = list(tgt.parameters()), list(src.parameters())
             torch._foreach_mul_(t, 1 - tau)

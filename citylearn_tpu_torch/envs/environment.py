@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Mapping, Tuple, Union
 import numpy as np
 import torch
 
-from citylearn_tpu_torch import resolve_device
+from citylearn_tpu_torch import resolve_device, tracing
 from citylearn_tpu_torch.compiler.schema import compile_schema
 from citylearn_tpu_torch.compiler.spaces import _hvac_input_power_np
 from citylearn_tpu_torch.compiler.spec import DistrictSpec
@@ -115,7 +115,7 @@ def step_packed(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     from it in one flat tensor: the ``_HIST_FIELDS`` rows (K, B), then
     :func:`_extras` in order. Float64 in the parity mode, else float32."""
     dtype = torch.float64 if cfg.parity_f64 else torch.float32
-    with torch.inference_mode():
+    with tracing.span("env.district_step"), torch.inference_mode():
         st, out = district_step(cfg, params, state, actions)
         parts = [getattr(out, f) for _, f in _HIST_FIELDS] + [out.reward]
         if cfg.has_evs:
@@ -560,10 +560,19 @@ class CityLearnEnv:
             at += n
         return out
 
+    @tracing.traced("env.step")
     def step(self, actions) -> Tuple[List[List[float]], List[float], bool, bool, dict]:
-        acts = self._device_actions(self._parse_actions(actions))
+        with tracing.span("env.actions"):
+            acts = self._device_actions(self._parse_actions(actions))
         self._state, flat = step_packed(self.cfg, self.params, self._state, acts)
-        flat = flat.cpu().numpy()                   # the step's one device-to-host copy
+        with tracing.span("env.readback"):
+            flat = flat.cpu().numpy()               # the step's one device-to-host copy
+        return self._observe(flat)
+
+    @tracing.traced("env.observe")
+    def _observe(self, flat: np.ndarray) -> Tuple[List[List[float]], List[float], bool, bool, dict]:
+        """The step's history row, extras and rewards from its copied
+        ``step_packed`` output; returns what ``step`` returns."""
         t = self._t
         K, B = len(_HIST_FIELDS), self.cfg.n_buildings
         self._hist_buf[t] = flat[:K * B].reshape(K, B)

@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.ops import _build
 
 ZERO = 1e-6       # reference citylearn/data.py:19
@@ -163,6 +164,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("battery_episode")
 def battery_episode(actions: torch.Tensor, series: Sequence[torch.Tensor],
                     bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                     soc0: torch.Tensor, eff0: torch.Tensor, deg0: torch.Tensor,
@@ -207,8 +209,8 @@ def battery_episode(actions: torch.Tensor, series: Sequence[torch.Tensor],
     s_pad = -(-S // STAGE_CHUNK) * STAGE_CHUNK
     stage = torch.empty((B, N_STAGE, s_pad), dtype=torch.float32, device=soc0.device)
     # the launch function runs on the CUDA runtime's current device:
-    # make it the tensors' card; a profiler names the two kernels' range
-    with torch.cuda.device(soc0.device), torch.profiler.record_function("battery_episode"):
+    # make it the tensors' card
+    with torch.cuda.device(soc0.device):
         stream = torch.cuda.current_stream(soc0.device).cuda_stream
         err = _launcher()(*[x.data_ptr() for x in inputs + outs],
                           None if rec is None else rec.data_ptr(), stage.data_ptr(),

@@ -27,6 +27,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.core.rollout_fast import battery_tables
 from citylearn_tpu_torch.core.types import DistrictParams, StaticConfig
 from citylearn_tpu_torch.ops import _build
@@ -93,6 +94,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("battery_collect_chunk")
 def battery_collect_chunk(prep: CollectPrep, actions: torch.Tensor, nsl: torch.Tensor,
                           solar: torch.Tensor, soc: torch.Tensor, eff: torch.Tensor,
                           deg: torch.Tensor, *, first_chunk: bool

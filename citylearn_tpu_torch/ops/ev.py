@@ -43,6 +43,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as _battery
 from citylearn_tpu_torch.ops.battery import MAX_KNOTS, _interp, battery_event
@@ -435,6 +436,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("ev_episode")
 def ev_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
                bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                cparams: torch.Tensor, ch_curves: Sequence[torch.Tensor],

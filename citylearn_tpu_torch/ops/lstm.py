@@ -36,6 +36,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.core.dynamics import lstm_predict
 from citylearn_tpu_torch.core.types import DynamicsParams
 from citylearn_tpu_torch.ops import _build
@@ -381,6 +382,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("lstm_episode")
 def lstm_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
                  bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                  tparams: torch.Tensor, lparams: torch.Tensor, weights: LstmWeights,

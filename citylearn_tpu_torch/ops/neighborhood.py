@@ -41,6 +41,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as _battery
 from citylearn_tpu_torch.ops.battery import MAX_KNOTS, ZERO, battery_event
@@ -276,6 +277,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("neighborhood_episode")
 def neighborhood_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
                          bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                          nparams: torch.Tensor, dsoc0: torch.Tensor, soc0: torch.Tensor,

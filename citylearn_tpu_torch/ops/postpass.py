@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.core.params import initial_state
 from citylearn_tpu_torch.core.rollout_fast import lstm_tables
 from citylearn_tpu_torch.core.step import OCC_FIELDS, dynamics_update, occupant_update
@@ -207,6 +208,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("postpass_kernel")
 def postpass_kernel(weights: LstmWeights, prows: torch.Tensor, schan: torch.Tensor,
                     series, lookback: int, occupant: Optional[dict] = None):
     """Launch P6 on the tensors of :func:`postpass_inputs` (all on one CUDA

@@ -36,6 +36,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.ops import _build
 from citylearn_tpu_torch.ops import battery as _battery
 from citylearn_tpu_torch.ops.battery import MAX_KNOTS, ZERO, battery_event, battery_event_energy
@@ -348,6 +349,7 @@ def _launcher():
     return fn
 
 
+@tracing.traced("thermal_episode")
 def thermal_episode(actions: Sequence[torch.Tensor], series: Sequence[torch.Tensor],
                     bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                     tparams: torch.Tensor, csoc0: torch.Tensor, dsoc0: torch.Tensor,

@@ -72,7 +72,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from citylearn_tpu_torch import resolve_device
+from citylearn_tpu_torch import resolve_device, tracing
 from citylearn_tpu_torch.agents.sac import (
     AgentNets,
     make_agent_nets,
@@ -383,7 +383,7 @@ class BatchedSAC:
     def _policy_actions(self, obs: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """(N, A, K) observations and (N, A, M) noise -> (N, A, M) sampled
         actions of the current policy."""
-        with torch.no_grad():
+        with tracing.span("train.policy"), torch.no_grad():
             act, _, _ = policy_sample(self.state.nets.policy, obs.transpose(0, 1),
                                       noise.transpose(0, 1), self.action_scale,
                                       self.action_bias, self.act_mask)
@@ -405,18 +405,21 @@ class BatchedSAC:
         parts = flat.split([r.shape[1] for r in rows], 1)
         return [x.contiguous().view((N,) + tuple(buf.shape[2:])) for x, buf in zip(parts, bufs)]
 
+    @tracing.traced("train.update")
     def _update(self, t: int, n_slots: int):
         """One SAC update of every agent on a batch drawn from the first
         ``n_slots`` replay slots (all districts)."""
         cfg, ts = self.cfg, self.base_state
         A, N = self.env_cfg.n_buildings, cfg.batch_size
-        obs, act, rew, nxt, done = self._replay_rows(
-            *self.draws.sample(t, N, n_slots, cfg.n_districts))
+        with tracing.span("train.draws"):
+            rows = self.draws.sample(t, N, n_slots, cfg.n_districts)
+            noise = self.draws.update_noise(t, (A, N, self.act_dim))
+        with tracing.span("train.replay"):
+            obs, act, rew, nxt, done = self._replay_rows(*rows)
         agents_first = lambda x: x.view(N, A, -1).transpose(0, 1)
         batch = (agents_first(obs), act.transpose(0, 1), rew.t(), agents_first(nxt),
                  done[None].expand(A, N))
-        sac_update(ts.nets, batch, self.draws.update_noise(t, (A, N, self.act_dim)),
-                   self.action_scale, self.action_bias, self.act_mask,
+        sac_update(ts.nets, batch, noise, self.action_scale, self.action_bias, self.act_mask,
                    alpha=cfg.alpha, discount=cfg.discount, tau=cfg.tau)
 
     def _store(self, idx, obs, act, rew, nxt, done):
@@ -489,6 +492,7 @@ class BatchedSAC:
                 and self.cfg.n_districts % (128 * self.mesh.world_size) == 0
                 and self.extra_obs_dim == 0)
 
+    @tracing.traced("train.chunk")
     def _collect_chunk(self, kc: int, first_chunk: bool, do_reset: bool) -> torch.Tensor:
         cfg, ts = self.cfg, self.state
         A, M = self.env_cfg.n_buildings, self.act_dim
@@ -568,12 +572,15 @@ class BatchedSAC:
         while left > 0:
             kc = min(left, self.cfg.collect_chunk, S_ep - self._phase, S_slots)
             do_reset = self._phase + kc == S_ep
-            total += float(all_reduce(self.mesh, self._collect_chunk(kc, self._phase == 0, do_reset)))
+            reward = self._collect_chunk(kc, self._phase == 0, do_reset)
+            with tracing.span("train.readback"):
+                total += float(all_reduce(self.mesh, reward))
             self._phase = 0 if do_reset else self._phase + kc
             left -= kc
         return total
 
     # ------------------------------------------------------------------
+    @tracing.traced("train.call")
     def train(self, n_steps: int, chunk: int = 200) -> List[float]:
         """Run ``n_steps`` env steps of collect+update; returns the mean
         summed reward per step of each chunk. Battery+PV-family configs
@@ -587,8 +594,9 @@ class BatchedSAC:
             if self.use_kernel_collect:
                 history.append(self._train_kernel_chunk(n) / n)
             else:
-                history.append(float(all_reduce(self.mesh, torch.stack([self._scan_step()
-                                                                        for _ in range(n)])).mean()))
+                rewards = torch.stack([self._scan_step() for _ in range(n)])
+                with tracing.span("train.readback"):
+                    history.append(float(all_reduce(self.mesh, rewards).mean()))
             remaining -= n
         return history
 

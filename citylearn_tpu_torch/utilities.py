@@ -86,27 +86,42 @@ class Profiler:
 
         with Profiler("/tmp/trace") as p:
             evaluate_scripted(cfg, params, policy, n_districts=4096)
-        p.trace_path, p.profile.key_averages()
+        p.trace_path, p.profile.key_averages(), p.recording.spans
+
+    The block also switches the program's tracer on
+    (:func:`citylearn_tpu_torch.tracing.recording`): every span the program
+    opens (``train.update``, ``sac.critic``, ``env.step``, the kernel
+    wrappers' ``battery_episode`` ...) is a ``record_function`` range in the
+    trace, so the trace names the program's layers, and ``recording`` holds
+    the spans. Inside a ``tracing.recording()`` block, ``recording`` is that
+    block's, which keeps every span.
     """
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self.trace_path = os.path.join(log_dir, "trace.json")
         self.profile = None
+        self.recording = None
+        self._tracing = None
 
     def __enter__(self):
         import torch
+
+        from citylearn_tpu_torch import tracing
 
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self.profile = torch.profiler.profile(activities=activities)
         self.profile.__enter__()
+        self._tracing = tracing.recording(annotate=True)
+        self.recording = self._tracing.__enter__()
         return self
 
     def __exit__(self, *exc):
         import torch
 
+        self._tracing.__exit__(*exc)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self.profile.__exit__(*exc)
