@@ -20,6 +20,11 @@ The host-loop agents (reference ``citylearn/agents/sac.py``) sit on top:
 replay ring and normalization statistics, steps the env through
 ``learn`` and updates each agent with :func:`sac_update`; :class:`SACRBC`
 explores with a rule-based controller.
+
+On CUDA inputs :func:`sac_update` replays one CUDA graph of the whole
+update (targets, both critics, the policy, both Adam steps, Polyak) in
+place of its ~620 eager launches, keyed on what the captured work reads;
+elsewhere it runs the update eagerly.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import warnings
 from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -175,6 +181,8 @@ class AgentNets:
     q1_opt: torch.optim.Adam
     q2_opt: torch.optim.Adam
     policy_opt: torch.optim.Adam
+    # sac_update's CUDA graph of these nets (a _Graph), not part of the state
+    _graph: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     NETS = ("q1", "q2", "q1_target", "q2_target", "policy")
     OPTS = ("q1_opt", "q2_opt", "policy_opt")
@@ -183,12 +191,39 @@ class AgentNets:
         return {k: getattr(self, k).state_dict() for k in self.NETS + self.OPTS}
 
     def load_state_dict(self, state: Dict[str, dict]):
+        """Copy ``state`` in. Adam's ``load_state_dict`` replaces the state
+        tensors a captured update read, so the graph is dropped."""
         for k in self.NETS + self.OPTS:
             getattr(self, k).load_state_dict(state[k])
+        for k in self.OPTS:
+            _fit_adam(getattr(self, k))
+        self._graph = None
+
+    def __getstate__(self):
+        # a copy starts without the graph: the captured one reads this
+        # object's tensors
+        return {**self.__dict__, "_graph": None}
 
 
 def _adam(module: nn.Module, lr: float) -> torch.optim.Adam:
-    return torch.optim.Adam(module.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    """Adam as the JAX package's optax.adam; capturable (its step count on
+    the device) when the module is on CUDA, for sac_update's graph."""
+    params = list(module.parameters())
+    return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                            capturable=params[0].is_cuda)
+
+
+def _fit_adam(opt: torch.optim.Adam):
+    """Make ``opt`` capturable exactly when its parameters are on CUDA, as
+    :func:`_adam` builds it, with each ``step`` on the device that Adam
+    reads it from. Adam's ``load_state_dict`` keeps the flag a state was
+    saved with, which is wrong for a state saved on the other device."""
+    for group in opt.param_groups:
+        group["capturable"] = capturable = group["params"][0].is_cuda
+        for p in group["params"]:
+            state = opt.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(p.device if capturable else "cpu")
 
 
 def make_agent_nets(n_agents: int, obs_dim: int, act_dim: int, hidden: Sequence[int],
@@ -234,6 +269,7 @@ def nets_from_numpy(tree, lr: float = 3e-4, device=None) -> AgentNets:
             opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
                             "exp_avg": at(adam_state.mu, path),
                             "exp_avg_sq": at(adam_state.nu, path)}
+        _fit_adam(opt)
     return nets
 
 
@@ -250,6 +286,9 @@ def _adam_step(opt: torch.optim.Adam, params: List[nn.Parameter], grads):
     opt.step()
 
 
+LOSSES = ("q1", "q2", "policy")
+
+
 def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
                action_scale: torch.Tensor, action_bias: torch.Tensor,
                act_mask: torch.Tensor, *, alpha: float, discount: float,
@@ -262,7 +301,94 @@ def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
     M) of the next-action sample and of the policy-loss sample. Each
     loss is a sum over agents of each agent's mean, so every agent's
     gradient is its own loss's. Returns the per-agent (A,) losses; each
-    parameter's ``.grad`` holds the gradient applied."""
+    parameter's ``.grad`` holds the gradient applied.
+
+    On CUDA inputs the update is a replay of a CUDA graph of
+    :func:`_sac_step`, bit-equal to running it (:class:`_Graph`); on any
+    other device it runs :func:`_sac_step`."""
+    hp = dict(alpha=alpha, discount=discount, tau=tau)
+    if batch[0].device.type != "cuda":
+        return _sac_step(nets, batch, noise, action_scale, action_bias, act_mask, **hp)
+    inputs = (*batch, *noise)
+    consts = (action_scale, action_bias, act_mask)
+    key = (tuple((x.shape, x.stride(), x.dtype, x.device) for x in inputs), alpha, discount,
+           tau, torch.backends.cuda.matmul.allow_tf32,
+           tuple(getattr(nets, k).param_groups[0]["lr"] for k in nets.OPTS))
+    graph = nets._graph
+    if graph is None or not graph.fits(key, consts):
+        nets._graph = graph = _Graph(key, consts, inputs)
+        return graph.first(nets, batch, noise, hp)
+    if graph.graph is None:
+        graph.capture(nets, len(batch), hp)
+    with tracing.span("sac.graph"):
+        return graph.replay(inputs)
+
+
+def _distinct(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every dimension of stride 0 (an ``expand``) cut to one:
+    each of its elements at its own address, as ``copy_`` writes them."""
+    for dim, stride in enumerate(x.stride()):
+        if stride == 0:
+            x = x.narrow(dim, 0, 1)
+    return x
+
+
+class _Graph:
+    """One SAC update of one :class:`AgentNets` as a CUDA graph.
+
+    The key is everything the captured work reads besides the nets and
+    their Adam state: the inputs' shapes, strides and dtypes, alpha,
+    discount and tau, TF32 and the learning rates; and, by identity,
+    ``action_scale``, ``action_bias`` and ``act_mask``, which it holds.
+    A key's first update runs :func:`_sac_step` eagerly on the capture's
+    side stream (PyTorch's warm-up), which creates Adam's state outside any
+    capture; its second captures and replays; every later one copies its
+    inputs into the static buffers, which keep the caller's strides so that
+    every operation sees the layout it sees eagerly, and replays. The
+    gradients the capture set on the parameters are the graph's, so each
+    ``.grad`` holds the gradient its replay applied."""
+
+    def __init__(self, key, consts, inputs):
+        self.key, self.consts = key, consts
+        self.inputs = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                           device=x.device) for x in inputs]
+        self.targets = [_distinct(x) for x in self.inputs]
+        self.stream = torch.cuda.Stream(inputs[0].device)
+        self.graph = None
+        self.losses = None           # (3, A): LOSSES stacked
+
+    def fits(self, key, consts) -> bool:
+        return self.key == key and all(a is b for a, b in zip(self.consts, consts))
+
+    def first(self, nets: AgentNets, batch, noise, hp) -> Dict[str, torch.Tensor]:
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream), warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "This instance was constructed with capturable")
+            losses = _sac_step(nets, batch, noise, *self.consts, **hp)
+        current.wait_stream(self.stream)
+        return losses
+
+    def capture(self, nets: AgentNets, n_batch: int, hp):
+        graph = torch.cuda.CUDAGraph()
+        with tracing.span("sac.capture"), torch.cuda.graph(graph, stream=self.stream):
+            losses = _sac_step(nets, tuple(self.inputs[:n_batch]),
+                               tuple(self.inputs[n_batch:]), *self.consts, **hp)
+            self.losses = torch.stack([losses[k] for k in LOSSES])
+        self.graph = graph
+
+    def replay(self, inputs) -> Dict[str, torch.Tensor]:
+        for buf, x in zip(self.targets, inputs):
+            buf.copy_(_distinct(x))
+        self.graph.replay()
+        return dict(zip(LOSSES, self.losses.clone().unbind(0)))
+
+
+def _sac_step(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
+              action_scale: torch.Tensor, action_bias: torch.Tensor,
+              act_mask: torch.Tensor, *, alpha: float, discount: float,
+              tau: float) -> Dict[str, torch.Tensor]:
+    """:func:`sac_update`'s update, run eagerly."""
     o, a, r, n, d = batch
     noise_next, noise_pi = noise
     with tracing.span("sac.target"), torch.no_grad():

@@ -3,7 +3,9 @@
 The trainer, the SAC update, the Gym env's step and the kernel wrappers
 open a span at each layer boundary: ``train.call``, ``train.chunk``,
 ``train.policy``, ``train.update`` (``train.draws``, ``train.replay``,
-``sac.target``, ``sac.critic``, ``sac.policy``, ``sac.polyak``) and
+``sac.target``, ``sac.critic``, ``sac.policy``, ``sac.polyak``; on a CUDA
+card ``sac.graph``, one replay of the update's CUDA graph, in place of the
+four, and ``sac.capture`` around the graph's capture) and
 ``train.readback``; ``env.step`` (``env.actions``, ``env.district_step``,
 ``env.readback``, ``env.observe``); and one span per kernel wrapper, named
 after it (``battery_episode``, ``battery_collect_chunk``,

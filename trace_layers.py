@@ -10,7 +10,9 @@ from the seed) and warmed up; then, for each, in one process:
 
 1. spans: ``--calls`` train calls (``--steps`` env steps) with the tracer
    on and nothing else; every span name's count and mean milliseconds,
-   and the calls (steps) a second of the same stretch;
+   the calls (steps) a second of the same stretch, and the counts of
+   ``sac.graph`` and ``sac.capture`` with the share of updates that
+   replayed the update's CUDA graph;
 2. launches: two calls (500 steps) with the tracer on under a
    ``torch.profiler`` trace of the device; the CUDA runtime's launches,
    copies, memsets and graph launches, each put down to the innermost
@@ -54,6 +56,16 @@ def span_table(rec: tracing.Recording) -> dict:
     for s in rec.spans:
         by.setdefault(s.name, []).append((s.end_ns - s.start_ns) * 1e-6)
     return {name: {"n": len(v), "mean_ms": sum(v) / len(v)} for name, v in sorted(by.items())}
+
+
+def graph_share(table: dict) -> dict:
+    """How many updates replayed ``sac_update``'s CUDA graph (``sac.graph``)
+    and how many captured it (``sac.capture``), and the replays' share of
+    the updates (``train.update``)."""
+    n = lambda name: table.get(name, {}).get("n", 0)
+    updates = n("train.update")
+    return {"sac.graph": n("sac.graph"), "sac.capture": n("sac.capture"),
+            "replayed_share": n("sac.graph") / updates if updates else None}
 
 
 def innermost(spans, starts, t: float):
@@ -156,7 +168,7 @@ def sac_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
     children = sum(s.end_ns - s.start_ns for s in rec.spans if s.parent in call_ids)
     out = {"calls": calls, "calls_per_s": calls / elapsed,
            "dsteps_per_s": calls * job.chunk * job.n_districts / elapsed, "spans": table,
-           "call_children_ms": children * 1e-6 / calls}
+           "call_children_ms": children * 1e-6 / calls, "graph": graph_share(table)}
     out["trace"] = traced(lambda: (once(), once()))
     out["on_off"] = on_off(pairs, once)
     del tr
