@@ -44,6 +44,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from citylearn_tpu_torch import tracing
 from citylearn_tpu_torch.core import debug, hvac
 from citylearn_tpu_torch.core.battery import battery_charge
 from citylearn_tpu_torch.core.curves import interp_linear
@@ -187,6 +188,7 @@ def _thermal_block(dev: HVACParams, tank_p: StorageTankParams, soc_prev: torch.T
             cons_accum + apply_cons)
 
 
+@tracing.traced("step.partial_load")
 def _partial_load_demand(cfg: StaticConfig, params: DistrictParams, t: torch.Tensor,
                          actions: Dict[str, torch.Tensor], cooling_demand: torch.Tensor,
                          heating_demand: torch.Tensor, hvac_mode: torch.Tensor,
@@ -233,6 +235,7 @@ def _partial_load_demand(cfg: StaticConfig, params: DistrictParams, t: torch.Ten
     return cooling_demand, heating_demand
 
 
+@tracing.traced("step.dynamics")
 def dynamics_update(cfg: StaticConfig, params: DistrictParams, tau: torch.Tensor,
                     t: torch.Tensor, cooling_demand_obs: torch.Tensor,
                     heating_demand_obs: torch.Tensor, temp_ideal: torch.Tensor,
@@ -714,9 +717,11 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     # demand observations (building.py:1435-1437) ----
     cooling_demand_obs = r32(cool.device_output) + torch.clamp(-cool.balance, min=0.0)
     heating_demand_obs = r32(heat.device_output) + torch.clamp(-heat.balance, min=0.0)
-    temp_t, lstm_h, lstm_c, dyn_input = dynamics_update(
-        cfg, params, tau, t, cooling_demand_obs, heating_demand_obs, temp_ideal,
-        state.lstm_h, state.lstm_c, state.dyn_input)
+    temp_t, lstm_h, lstm_c, dyn_input = temp_ideal, state.lstm_h, state.lstm_c, state.dyn_input
+    if cfg.has_dynamics:
+        temp_t, lstm_h, lstm_c, dyn_input = dynamics_update(
+            cfg, params, tau, t, cooling_demand_obs, heating_demand_obs, temp_ideal,
+            lstm_h, lstm_c, dyn_input)
     cooling_sp = at(series.indoor_dry_bulb_temperature_cooling_set_point)
     heating_sp = at(series.indoor_dry_bulb_temperature_heating_set_point)
     # ---- occupant thermostat interaction on the predicted temperature

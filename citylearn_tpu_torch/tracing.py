@@ -1,12 +1,16 @@
 """Spans inside the program, on the host's wall clock.
 
-The trainer, the SAC update, the Gym env's step and the kernel wrappers
-open a span at each layer boundary: ``train.call``, ``train.chunk``,
-``train.policy``, ``train.update`` (``train.draws``, ``train.replay``,
-``sac.target``, ``sac.critic``, ``sac.policy``, ``sac.polyak``; on a CUDA
-card ``sac.graph``, one replay of the update's CUDA graph, in place of the
-four, and ``sac.capture`` around the graph's capture) and
-``train.readback``; ``env.step`` (``env.actions``, ``env.district_step``,
+The trainer, the SAC update, the district step, the Gym env's step and
+the kernel wrappers open a span at each layer boundary: ``train.call``,
+``train.chunk`` (the chunked collect) or ``train.step`` (one step of the
+per-step collect, its update included), ``train.policy``, ``train.update``
+(``train.draws``, ``train.replay``, ``sac.target``, ``sac.critic``,
+``sac.policy``, ``sac.polyak``; on a CUDA card ``sac.graph``, one replay
+of the update's CUDA graph, in place of the four, and ``sac.capture``
+around the graph's capture) and ``train.readback``; inside
+``district_step`` on an LSTM-dynamics district ``step.partial_load``
+(the partial-load demand) and ``step.dynamics`` (the LSTM's window and
+its prediction); ``env.step`` (``env.actions``, ``env.district_step``,
 ``env.readback``, ``env.observe``); and one span per kernel wrapper, named
 after it (``battery_episode``, ``battery_collect_chunk``,
 ``thermal_episode``, ``ev_episode``, ``lstm_episode``,

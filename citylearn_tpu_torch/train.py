@@ -433,6 +433,7 @@ class BatchedSAC:
     # ------------------------------------------------------------------
     # per-step collect
     # ------------------------------------------------------------------
+    @tracing.traced("train.step")
     def _scan_step(self) -> torch.Tensor:
         cfg, ts = self.cfg, self.state
         D, n = cfg.n_districts, self.n_local

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of the benchmark's two one-card cells goes, by the
+"""Where the time of the benchmark's one-card cells goes, by the
 program's own spans (``citylearn_tpu_torch.tracing``), on one CUDA card.
 
     python3 trace_layers.py [--seed N] [--calls 8] [--steps 2000] [--pairs 24] [--json PATH]
 
 The cells are built as ``benchmark/`` builds them (``BENCHMARK.json``'s
-``challenge2022_phase1.sac_train`` and ``challenge2022_phase1.gym_year``,
-from the seed) and warmed up; then, for each, in one process:
+``challenge2022_phase1.sac_train``, ``challenge2022_phase1.gym_year`` and
+``challenge2023_phase1.sac_train``, from the seed) and warmed up; then,
+for each, in one process:
 
 1. spans: ``--calls`` train calls (``--steps`` env steps) with the tracer
    on and nothing else; every span name's count and mean milliseconds,
@@ -22,6 +23,12 @@ from the seed) and warmed up; then, for each, in one process:
 3. on-cost: ``--pairs`` pairs of one call (300 steps) with the tracer on
    and off, in alternating order; calls (steps) a second of each side and
    the paired relative difference's quartiles.
+
+The per-step LSTM cell runs a quarter of ``--calls`` and of ``--pairs``
+(a call is 64 district steps there, each with its own update), and adds
+each step's time outside its update (``train.step`` less ``train.update``)
+and the share of it in ``step.dynamics`` (the LSTM) and
+``step.partial_load``.
 
 Prints one JSON object, also written to ``--json`` (default
 ``chiprun_out/trace_layers.json``).
@@ -45,6 +52,7 @@ import torch
 from benchmark import harness
 from benchmark.entries import gym as gym_entry
 from benchmark.entries import sac_train as sac_entry
+from benchmark.entries import sac_train_scan as scan_entry
 from citylearn_tpu_torch import tracing
 
 LAUNCHES = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch")
@@ -176,6 +184,39 @@ def sac_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
     return out
 
 
+def scan_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
+    bench = harness.load_benchmark()
+    cell = harness.find_cell(bench, "challenge2023_phase1.sac_train")
+    sac_entry._no_tf32()
+    job, _, tr, _ = scan_entry.build(cell, seed, root, torch.device("cuda:0"))
+    once = lambda: tr.train(job.chunk, chunk=job.chunk)
+    for _ in range(3):
+        once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tracing.recording() as rec:
+        for _ in range(calls):
+            once()
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    table = span_table(rec)
+    total = lambda name: sum(rec.durations(name)) * 1e3
+    steps = table.get("train.step", {}).get("n", 0)
+    outside = total("train.step") - total("train.update")
+    out = {"calls": calls, "calls_per_s": calls / elapsed,
+           "dsteps_per_s": calls * job.chunk * job.n_districts / elapsed, "spans": table,
+           "graph": graph_share(table),
+           "step_less_update_ms": outside / steps if steps else None,
+           "dynamics_share_of_step_pct": 100.0 * total("step.dynamics") / outside if steps else None,
+           "partial_load_share_of_step_pct":
+               100.0 * total("step.partial_load") / outside if steps else None}
+    out["trace"] = traced(once)
+    out["on_off"] = on_off(pairs, once)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
 def gym_cell(seed: int, steps: int, pairs: int, root: str) -> dict:
     from citylearn_tpu_torch.envs.environment import CityLearnEnv
 
@@ -221,7 +262,9 @@ def main(argv=None) -> int:
     try:
         out = {"card": card, "seed": args.seed,
                "sac_train": sac_cell(args.seed, args.calls, args.pairs, root),
-               "gym_year": gym_cell(args.seed, args.steps, args.pairs, root)}
+               "gym_year": gym_cell(args.seed, args.steps, args.pairs, root),
+               "lstm_sac_train": scan_cell(args.seed, max(1, args.calls // 4),
+                                           max(2, args.pairs // 4), root)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
