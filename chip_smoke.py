@@ -167,8 +167,8 @@ Phases, each of which raises on failure:
      through the family's kernel (K1, K3, K4, K5, K6 and P6, each of which
      must launch), within 2e-5 relative (the discomfort and resilience
      KPIs of the LSTM and neighborhood districts within 2 steps in 168);
-     env steps/s and the share of a step spent outside ``district_step``
-     per family; then 168 battery+PV steps in the float64 parity mode on
+     env steps/s and the share of a step spent outside ``step_packed`` (the
+     district step and its packing) per family; then 168 battery+PV steps in the float64 parity mode on
      the card against the same steps on the CPU, within 1e-6 of scale.
  29. the CLI and the host-loop agents on the card, through ``cli.main`` in
      the process on named datasets that the dataset catalog resolves from
@@ -1805,7 +1805,7 @@ def env_path(dev, results):
         ("lstm", lstm_plans(), (k5.lstm_episode,)),
         ("eulp", neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)),
         ("quebec", neighborhood_plans(), (k6.neighborhood_episode, p6.postpass_kernel)))
-    shipped_step = environment.district_step
+    shipped_step = environment.step_packed
     launched = {}
     for name, tables, kernels in families:
         t0 = time.perf_counter()
@@ -1819,7 +1819,8 @@ def env_path(dev, results):
         S = cfg.time_steps - 1
         policy = ScriptedPolicy(tables)
         actions = plan_actions(env, policy.expanded(cfg, params, S))
-        # the district step, timed to its end on the card, inside env.step
+        # the district step and its packing (one replay of the env's CUDA
+        # graph), timed to its end on the card, inside env.step
         in_step = [0.0]
 
         def timed_step(*args):
@@ -1829,7 +1830,7 @@ def env_path(dev, results):
             in_step[0] += time.perf_counter() - t
             return out
 
-        environment.district_step = timed_step
+        environment.step_packed = timed_step
         try:
             env.reset()
             torch.cuda.synchronize()
@@ -1838,7 +1839,7 @@ def env_path(dev, results):
                 env.step(actions(s))
             episode_s = time.perf_counter() - t0
         finally:
-            environment.district_step = shipped_step
+            environment.step_packed = shipped_step
         if not env.terminated:
             raise AssertionError(f"{name}: the env did not end its episode after {S} steps")
         rows = env.evaluate_rows()
@@ -1865,7 +1866,7 @@ def env_path(dev, results):
                         f"env_{name}_set_up_s": set_up_s})
         print(f"{name}: B={cfg.n_buildings}, {S} env steps in {episode_s:.2f} s = {rate:.1f} "
               f"steps/s ({episode_s * 1e3 / S:.3f} ms a step, {outside:.1%} of it outside "
-              f"district_step); KPI rows vs the kernel table through {counts}: max error "
+              f"step_packed); KPI rows vs the kernel table through {counts}: max error "
               f"{worst:.3e} (tolerance {TOL_ENV:g})"
               + (f", discomfort and resilience {worst_comfort:.3e} (tolerance "
                  f"{COMFORT_STEPS} steps in {S})" if comfort else "")

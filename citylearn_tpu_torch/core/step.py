@@ -55,6 +55,7 @@ from citylearn_tpu_torch.core.reward import (
     compute_reward,
     segment_sum,
 )
+from citylearn_tpu_torch.core.step_graph import engaged_graph
 from citylearn_tpu_torch.core.storage import tank_charge
 from citylearn_tpu_torch.core.types import (
     BatteryParams,
@@ -552,7 +553,15 @@ def district_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
     ``electric_vehicle_storage`` (D, C) over the
     district's chargers and ``washing_machine`` (D, W) over its machines; a
     missing or inactive action is 0.0 (reference ``building.py:1561-1564``).
+
+    Inside a :meth:`~citylearn_tpu_torch.core.step_graph.StepGraph.engaged`
+    block the step is a replay of that graph's capture of it, and the
+    returned state and output are its static outputs, valid until its next
+    replay (:mod:`citylearn_tpu_torch.core.step_graph`).
     """
+    graph = engaged_graph()
+    if graph is not None:
+        return graph.run(district_step, cfg, params, state, actions)
     series = params.series
     t = state.t
     tau = (state.data_offset + t).long()

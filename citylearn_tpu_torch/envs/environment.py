@@ -15,10 +15,12 @@ Reproduces the reference's external contract:
 
 Each step is one :func:`~citylearn_tpu_torch.core.step.district_step` of
 a batch of one district on the env's device (the CUDA card unless the
-caller passes ``device="cpu"``): the actions go over in one host-to-device
-copy, and every per-building series the env keeps, the reward and the
-step's extras (charger series, EV SOCs, charging headrooms, occupant
-set-point overrides) come back in ONE device-to-host copy. Observations,
+caller passes ``device="cpu"``; there one replay of the env's CUDA graph
+of the step and its packing, :mod:`citylearn_tpu_torch.core.step_graph`):
+the actions go over in one host-to-device copy, and every per-building
+series the env keeps, the reward and the step's extras (charger series,
+EV SOCs, charging headrooms, occupant set-point overrides) come back in
+ONE device-to-host copy. Observations,
 history and KPIs are then built on the host in numpy. ``pandas`` (the
 ``evaluate()`` frame) is imported only where it is used, and the spaces are
 gymnasium's where it imports and the port's :class:`~citylearn_tpu_torch.spaces.Box`
@@ -43,6 +45,7 @@ from citylearn_tpu_torch.compiler.spec import DistrictSpec
 from citylearn_tpu_torch.core import kpi
 from citylearn_tpu_torch.core.params import initial_state, lift_f64, pack
 from citylearn_tpu_torch.core.step import district_step
+from citylearn_tpu_torch.core.step_graph import StepGraph, engaged_graph
 from citylearn_tpu_torch.core.types import DistrictParams, EnvState, StaticConfig, map_tensors
 from citylearn_tpu_torch.envs.episode import EpisodeTracker
 from citylearn_tpu_torch.envs.outage import building_outage_signal
@@ -113,19 +116,30 @@ def step_packed(cfg: StaticConfig, params: DistrictParams, state: EnvState,
                 actions: Dict[str, torch.Tensor]) -> Tuple[EnvState, torch.Tensor]:
     """One district step of a batch of one, and everything the env keeps
     from it in one flat tensor: the ``_HIST_FIELDS`` rows (K, B), then
-    :func:`_extras` in order. Float64 in the parity mode, else float32."""
-    dtype = torch.float64 if cfg.parity_f64 else torch.float32
+    :func:`_extras` in order. Float64 in the parity mode, else float32.
+    Inside a :meth:`~citylearn_tpu_torch.core.step_graph.StepGraph.engaged`
+    block the step and the packing are one replay of that graph, and the
+    state and the flat tensor are its static outputs."""
     with tracing.span("env.district_step"), torch.inference_mode():
-        st, out = district_step(cfg, params, state, actions)
-        parts = [getattr(out, f) for _, f in _HIST_FIELDS] + [out.reward]
-        if cfg.has_evs:
-            parts += [out.charger_consumption, out.charger_action_kwh, out.ev_soc]
-        if cfg.has_charging_constraints:
-            parts += [out.charging_building_headroom, out.charging_phase_headroom,
-                      out.charging_violation_kwh]
-        if cfg.has_occupant:
-            parts += [st.occ_csp_override, st.occ_hsp_override]
-        return st, torch.cat([p.reshape(-1).to(dtype) for p in parts])
+        graph = engaged_graph()
+        if graph is not None:
+            return graph.run(_packed_step, cfg, params, state, actions)
+        return _packed_step(cfg, params, state, actions)
+
+
+def _packed_step(cfg: StaticConfig, params: DistrictParams, state: EnvState,
+                 actions: Dict[str, torch.Tensor]) -> Tuple[EnvState, torch.Tensor]:
+    dtype = torch.float64 if cfg.parity_f64 else torch.float32
+    st, out = district_step(cfg, params, state, actions)
+    parts = [getattr(out, f) for _, f in _HIST_FIELDS] + [out.reward]
+    if cfg.has_evs:
+        parts += [out.charger_consumption, out.charger_action_kwh, out.ev_soc]
+    if cfg.has_charging_constraints:
+        parts += [out.charging_building_headroom, out.charging_phase_headroom,
+                  out.charging_violation_kwh]
+    if cfg.has_occupant:
+        parts += [st.occ_csp_override, st.occ_hsp_override]
+    return st, torch.cat([p.reshape(-1).to(dtype) for p in parts])
 
 
 class CityLearnEnv:
@@ -193,6 +207,8 @@ class CityLearnEnv:
         self._episode_rewards: List[dict] = []
         self._history: dict = {}
         self._state = None
+        # this env's CUDA graph of step_packed (core/step_graph.py)
+        self._step_graph = StepGraph()
         schema_dict = self.spec.schema
         self.render_enabled = bool(schema_dict.get("render", False)
                                    if render is None else render)
@@ -564,7 +580,8 @@ class CityLearnEnv:
     def step(self, actions) -> Tuple[List[List[float]], List[float], bool, bool, dict]:
         with tracing.span("env.actions"):
             acts = self._device_actions(self._parse_actions(actions))
-        self._state, flat = step_packed(self.cfg, self.params, self._state, acts)
+        with self._step_graph.engaged():
+            self._state, flat = step_packed(self.cfg, self.params, self._state, acts)
         with tracing.span("env.readback"):
             flat = flat.cpu().numpy()               # the step's one device-to-host copy
         return self._observe(flat)

@@ -10,8 +10,14 @@ of the update's CUDA graph, in place of the four, and ``sac.capture``
 around the graph's capture) and ``train.readback``; inside
 ``district_step`` on an LSTM-dynamics district ``step.partial_load``
 (the partial-load demand) and ``step.dynamics`` (the LSTM's window and
-its prediction); ``env.step`` (``env.actions``, ``env.district_step``,
-``env.readback``, ``env.observe``); and one span per kernel wrapper, named
+its prediction); on a CUDA card, where the per-step trainer and the Gym
+env replay a CUDA graph of their step (``core/step_graph.py``),
+``step.graph`` (one replay, the copy of the state and actions into its
+buffers included) and ``step.capture`` (the graph's capture), and then
+``step.partial_load`` and ``step.dynamics`` appear only in a graph's
+first, eager call and its capture, never in a replay; ``env.step``
+(``env.actions``, ``env.district_step``, ``env.readback``,
+``env.observe``); and one span per kernel wrapper, named
 after it (``battery_episode``, ``battery_collect_chunk``,
 ``thermal_episode``, ``ev_episode``, ``lstm_episode``,
 ``neighborhood_episode``, ``postpass_kernel``). How often a layer ran is

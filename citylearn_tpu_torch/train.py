@@ -24,9 +24,10 @@ JAX trainer on each (``tests/test_torch_train*.py``):
   one-hot einsum.
 - **Two collect paths, one result.** The per-step path runs
   :func:`citylearn_tpu_torch.core.step.district_step` once per env step,
-  on every family. On battery+PV districts the chunked path instead runs
-  a whole chunk of K steps as one batched policy sweep plus one launch of
-  the collect kernel K2
+  on every family (on the card a replay of the trainer's CUDA graph of
+  it, :mod:`citylearn_tpu_torch.core.step_graph`). On battery+PV
+  districts the chunked path instead runs a whole chunk of K steps as
+  one batched policy sweep plus one launch of the collect kernel K2
   (:func:`citylearn_tpu_torch.ops.collect.battery_collect_chunk`), then
   the chunk's K updates. Both draw the same random numbers (below),
   so their warmup transitions agree bit for bit in the actions.
@@ -92,6 +93,7 @@ from citylearn_tpu_torch.core.obs_encoder import (
 from citylearn_tpu_torch.core.params import pack
 from citylearn_tpu_torch.core.rollout import ACTION_KEYS, batched_initial_states
 from citylearn_tpu_torch.core.step import district_step
+from citylearn_tpu_torch.core.step_graph import StepGraph
 from citylearn_tpu_torch.core.types import EnvState, map_tensors
 from citylearn_tpu_torch.ops.collect import battery_collect_chunk, prepare_battery_collect
 from citylearn_tpu_torch.parallel.mesh import (
@@ -296,6 +298,8 @@ class BatchedSAC:
             self.max_offset = 0
 
         self.draws = StepDraws(seed, dev)
+        # the per-step collect's CUDA graph of district_step (core/step_graph.py)
+        self._step_graph = StepGraph()
         self._init_state(seed)
 
         # ---- closed-loop kernel collect (battery+PV family) ----
@@ -372,7 +376,9 @@ class BatchedSAC:
         """(D, A, M) padded masked actions -> the step's action dict: the
         building-level keys (D, B), and on an EV district
         ``electric_vehicle_storage`` (D, C) and ``washing_machine`` (D, W)."""
-        bld = torch.einsum("dam,amk->kda", a_env, self.w_bld)
+        # each key's (D, B) rows contiguous, the layout of the step graph's
+        # buffers, so that one copy takes all of them into the graph
+        bld = torch.einsum("dam,amk->kda", a_env, self.w_bld).contiguous()
         out = {k: bld[i] for i, k in enumerate(ACTION_KEYS)}
         if self.w_ch is not None:
             out["electric_vehicle_storage"] = torch.einsum("dam,amc->dc", a_env, self.w_ch)
@@ -445,8 +451,9 @@ class BatchedSAC:
         else:
             a_env = self._policy_actions(
                 obs, self._mine(self.draws.act_noise(t, (D,) + self.act_low.shape)))
-        env_state, out = district_step(self.env_cfg, self.params, ts.env_state,
-                                       self._actions_dict(a_env))
+        actions = self._actions_dict(a_env)
+        with self._step_graph.engaged():
+            env_state, out = district_step(self.env_cfg, self.params, ts.env_state, actions)
         reward = out.reward * cfg.reward_scale                 # (n, A)
         next_obs = self._encoded_obs(env_state)
 

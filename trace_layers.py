@@ -28,7 +28,11 @@ The per-step LSTM cell runs a quarter of ``--calls`` and of ``--pairs``
 (a call is 64 district steps there, each with its own update), and adds
 each step's time outside its update (``train.step`` less ``train.update``)
 and the share of it in ``step.dynamics`` (the LSTM) and
-``step.partial_load``.
+``step.partial_load`` (both seen only in eager steps: a replay of the
+step's CUDA graph runs neither as Python). For it and the Gym cell,
+``step_graph`` counts ``step.graph`` (a replay of the district step's
+CUDA graph) and ``step.capture`` in the warm-up and in stretch 1, and
+the share of stretch 1's district steps that replayed.
 
 Prints one JSON object, also written to ``--json`` (default
 ``chiprun_out/trace_layers.json``).
@@ -74,6 +78,19 @@ def graph_share(table: dict) -> dict:
     updates = n("train.update")
     return {"sac.graph": n("sac.graph"), "sac.capture": n("sac.capture"),
             "replayed_share": n("sac.graph") / updates if updates else None}
+
+
+def step_graph_share(table: dict, steps: str, warmup: dict) -> dict:
+    """How many district steps replayed their owner's CUDA graph of the step
+    (``step.graph``) and how many captured it (``step.capture``), in the
+    warm-up and in the recorded stretch, and the replays' share of the
+    recorded stretch's steps (spans named ``steps``)."""
+    n = lambda t, name: t.get(name, {}).get("n", 0)
+    return {"step.graph": n(table, "step.graph"), "step.capture": n(table, "step.capture"),
+            "warmup_step.graph": n(warmup, "step.graph"),
+            "warmup_step.capture": n(warmup, "step.capture"),
+            "replayed_share": (n(table, "step.graph") / n(table, steps)
+                               if n(table, steps) else None)}
 
 
 def innermost(spans, starts, t: float):
@@ -190,8 +207,9 @@ def scan_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
     sac_entry._no_tf32()
     job, _, tr, _ = scan_entry.build(cell, seed, root, torch.device("cuda:0"))
     once = lambda: tr.train(job.chunk, chunk=job.chunk)
-    for _ in range(3):
-        once()
+    with tracing.recording() as warm:
+        for _ in range(3):
+            once()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with tracing.recording() as rec:
@@ -206,6 +224,7 @@ def scan_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
     out = {"calls": calls, "calls_per_s": calls / elapsed,
            "dsteps_per_s": calls * job.chunk * job.n_districts / elapsed, "spans": table,
            "graph": graph_share(table),
+           "step_graph": step_graph_share(table, "train.step", span_table(warm)),
            "step_less_update_ms": outside / steps if steps else None,
            "dynamics_share_of_step_pct": 100.0 * total("step.dynamics") / outside if steps else None,
            "partial_load_share_of_step_pct":
@@ -233,13 +252,16 @@ def gym_cell(seed: int, steps: int, pairs: int, root: str) -> dict:
             if terminated:
                 env.reset()
 
-    run_steps(int(cell.traffic["warmup_steps"]))
+    with tracing.recording() as warm:
+        run_steps(int(cell.traffic["warmup_steps"]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with tracing.recording() as rec:
         run_steps(steps)
     elapsed = time.perf_counter() - t0
-    out = {"steps": steps, "steps_per_s": steps / elapsed, "spans": span_table(rec)}
+    table = span_table(rec)
+    out = {"steps": steps, "steps_per_s": steps / elapsed, "spans": table,
+           "step_graph": step_graph_share(table, "env.district_step", span_table(warm))}
     out["trace"] = traced(lambda: run_steps(int(cell.traffic["trace_steps"])))
     out["on_off"] = on_off(pairs, lambda: run_steps(300))
     return out
