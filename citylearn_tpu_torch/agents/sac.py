@@ -23,7 +23,7 @@ explores with a rule-based controller.
 
 On CUDA inputs :func:`sac_update` replays one CUDA graph of the whole
 update (targets, both critics, the policy, both Adam steps, Polyak) in
-place of its ~620 eager launches, keyed on what the captured work reads;
+place of its ~620 eager launches (:mod:`citylearn_tpu_torch.graphs`);
 elsewhere it runs the update eagerly.
 """
 
@@ -42,6 +42,7 @@ from torch import nn
 from citylearn_tpu_torch import resolve_device, tracing
 from citylearn_tpu_torch.agents.rbc import RBC, BasicRBC
 from citylearn_tpu_torch.agents.rlc import RLC
+from citylearn_tpu_torch.graphs import Graph
 from citylearn_tpu_torch.preprocessing import RemoveFeature, encode
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -181,8 +182,10 @@ class AgentNets:
     q1_opt: torch.optim.Adam
     q2_opt: torch.optim.Adam
     policy_opt: torch.optim.Adam
-    # sac_update's CUDA graph of these nets (a _Graph), not part of the state
-    _graph: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
+    # sac_update's CUDA graph of these nets, not part of the state; a copy
+    # or a pickle starts without one
+    update_graph: Graph = dataclasses.field(default_factory=lambda: Graph("sac"), init=False,
+                                            repr=False, compare=False)
 
     NETS = ("q1", "q2", "q1_target", "q2_target", "policy")
     OPTS = ("q1_opt", "q2_opt", "policy_opt")
@@ -197,12 +200,7 @@ class AgentNets:
             getattr(self, k).load_state_dict(state[k])
         for k in self.OPTS:
             _fit_adam(getattr(self, k))
-        self._graph = None
-
-    def __getstate__(self):
-        # a copy starts without the graph: the captured one reads this
-        # object's tensors
-        return {**self.__dict__, "_graph": None}
+        self.update_graph = Graph("sac")
 
 
 def _adam(module: nn.Module, lr: float) -> torch.optim.Adam:
@@ -303,85 +301,29 @@ def sac_update(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
     gradient is its own loss's. Returns the per-agent (A,) losses; each
     parameter's ``.grad`` holds the gradient applied.
 
-    On CUDA inputs the update is a replay of a CUDA graph of
-    :func:`_sac_step`, bit-equal to running it (:class:`_Graph`); on any
-    other device it runs :func:`_sac_step`."""
+    On CUDA inputs the update is a replay of the nets' CUDA graph of
+    :func:`_sac_step` (``nets.update_graph``), bit-equal to running it,
+    keyed also on alpha, discount, tau and the learning rates, and on
+    ``action_scale``, ``action_bias`` and ``act_mask`` by identity. The
+    gradients the capture set on the parameters are the graph's, so each
+    ``.grad`` holds the gradient its replay applied. On any other device
+    it runs :func:`_sac_step`."""
     hp = dict(alpha=alpha, discount=discount, tau=tau)
     if batch[0].device.type != "cuda":
         return _sac_step(nets, batch, noise, action_scale, action_bias, act_mask, **hp)
-    inputs = (*batch, *noise)
-    consts = (action_scale, action_bias, act_mask)
-    key = (tuple((x.shape, x.stride(), x.dtype, x.device) for x in inputs), alpha, discount,
-           tau, torch.backends.cuda.matmul.allow_tf32,
-           tuple(getattr(nets, k).param_groups[0]["lr"] for k in nets.OPTS))
-    graph = nets._graph
-    if graph is None or not graph.fits(key, consts):
-        nets._graph = graph = _Graph(key, consts, inputs)
-        return graph.first(nets, batch, noise, hp)
-    if graph.graph is None:
-        graph.capture(nets, len(batch), hp)
-    with tracing.span("sac.graph"):
-        return graph.replay(inputs)
+    consts, n = (action_scale, action_bias, act_mask), len(batch)
 
-
-def _distinct(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with every dimension of stride 0 (an ``expand``) cut to one:
-    each of its elements at its own address, as ``copy_`` writes them."""
-    for dim, stride in enumerate(x.stride()):
-        if stride == 0:
-            x = x.narrow(dim, 0, 1)
-    return x
-
-
-class _Graph:
-    """One SAC update of one :class:`AgentNets` as a CUDA graph.
-
-    The key is everything the captured work reads besides the nets and
-    their Adam state: the inputs' shapes, strides and dtypes, alpha,
-    discount and tau, TF32 and the learning rates; and, by identity,
-    ``action_scale``, ``action_bias`` and ``act_mask``, which it holds.
-    A key's first update runs :func:`_sac_step` eagerly on the capture's
-    side stream (PyTorch's warm-up), which creates Adam's state outside any
-    capture; its second captures and replays; every later one copies its
-    inputs into the static buffers, which keep the caller's strides so that
-    every operation sees the layout it sees eagerly, and replays. The
-    gradients the capture set on the parameters are the graph's, so each
-    ``.grad`` holds the gradient its replay applied."""
-
-    def __init__(self, key, consts, inputs):
-        self.key, self.consts = key, consts
-        self.inputs = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
-                                           device=x.device) for x in inputs]
-        self.targets = [_distinct(x) for x in self.inputs]
-        self.stream = torch.cuda.Stream(inputs[0].device)
-        self.graph = None
-        self.losses = None           # (3, A): LOSSES stacked
-
-    def fits(self, key, consts) -> bool:
-        return self.key == key and all(a is b for a, b in zip(self.consts, consts))
-
-    def first(self, nets: AgentNets, batch, noise, hp) -> Dict[str, torch.Tensor]:
-        current = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream), warnings.catch_warnings():
+    def update(*inputs):
+        with warnings.catch_warnings():
+            # the graph's eager first update steps the capturable Adams
+            # outside a capture
             warnings.filterwarnings("ignore", "This instance was constructed with capturable")
-            losses = _sac_step(nets, batch, noise, *self.consts, **hp)
-        current.wait_stream(self.stream)
-        return losses
+            losses = _sac_step(nets, inputs[:n], inputs[n:], *consts, **hp)
+        return torch.stack([losses[k] for k in LOSSES])
 
-    def capture(self, nets: AgentNets, n_batch: int, hp):
-        graph = torch.cuda.CUDAGraph()
-        with tracing.span("sac.capture"), torch.cuda.graph(graph, stream=self.stream):
-            losses = _sac_step(nets, tuple(self.inputs[:n_batch]),
-                               tuple(self.inputs[n_batch:]), *self.consts, **hp)
-            self.losses = torch.stack([losses[k] for k in LOSSES])
-        self.graph = graph
-
-    def replay(self, inputs) -> Dict[str, torch.Tensor]:
-        for buf, x in zip(self.targets, inputs):
-            buf.copy_(_distinct(x))
-        self.graph.replay()
-        return dict(zip(LOSSES, self.losses.clone().unbind(0)))
+    lrs = tuple(getattr(nets, k).param_groups[0]["lr"] for k in nets.OPTS)
+    losses = nets.update_graph.run(update, (*batch, *noise), (alpha, discount, tau, lrs), consts)
+    return dict(zip(LOSSES, losses.clone().unbind(0)))
 
 
 def _sac_step(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],

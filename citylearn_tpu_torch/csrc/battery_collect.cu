@@ -110,7 +110,8 @@ __global__ void __launch_bounds__(THREADS) collect_kernel(const Args a) {
         __pipeline_wait_prior(RING - 1);
         const float(*slot)[THREADS] = ring[k % RING];
         const float act = slot[0][tid], nsl = slot[1][tid], solar = slot[2][tid];
-        // Battery::step's request, in its order of operations
+        // the request as the plain version's action * nominal * hours_ratio
+        // (ops/battery.py::battery_event), in its order of operations
         const float energy = act * bat.nominal * a.hours_ratio;
         float soc1 = soc, eff1 = eff, deg1 = deg;
         bool slow = false;

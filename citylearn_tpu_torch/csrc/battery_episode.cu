@@ -78,7 +78,8 @@ __global__ void __launch_bounds__(PRELUDE_THREADS) prelude_kernel(const Args a) 
     const int t = o / a.B;
     const int b = o - t * a.B;
     float* st = a.stage + static_cast<size_t>(b) * N_STAGE * a.S_pad + t;
-    // Battery::step's request; the t == 0 triple count of the
+    // the request as the plain version's action * nominal * hours_ratio
+    // (ops/battery.py::battery_event); the t == 0 triple count of the
     // non-shiftable load (building.py:2615-2652)
     st[ST_ENERGY * a.S_pad] = a.act[o] * a.bparams[1 * a.B + b] * a.hours_ratio;
     st[ST_NSL * a.S_pad] = t == 0 ? 3.f * a.nsl[o] : a.nsl[o];

@@ -76,8 +76,9 @@ def battery_event(bparams: torch.Tensor, curves: Sequence[torch.Tensor],
                   action: torch.Tensor, hours_ratio: float, ratio: float
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One battery event of a (D, B) batch under ``action`` ((B,) or
-    (D, B)), rounding every operation as ``csrc/battery_common.cuh``'s
-    ``Battery::step`` does. Returns (soc, efficiency, degraded capacity,
+    (D, B)): the request ``action * nominal * hours_ratio``, in that order,
+    then the event, rounding every operation as ``csrc/battery_common.cuh``'s
+    ``battery::event`` does. Returns (soc, efficiency, degraded capacity,
     energy balance) after the event."""
     return battery_event_energy(bparams, curves, soc, eff, deg,
                                 action * bparams[1] * hours_ratio, ratio)

@@ -204,7 +204,7 @@ def test_graph_is_bit_equal_to_eager_on_this_districts_actions(schema, monkeypat
             for (leaf, p), q in zip(getattr(nets, name).named_parameters(),
                                     getattr(ref, name).parameters()):
                 assert torch.equal(p, q), f"{name}.{leaf}"
-        seen.append(nets._graph is not None)
+        seen.append(nets.update_graph.key is not None)
         return out
 
     monkeypatch.setattr(train_mod, "sac_update", compared)

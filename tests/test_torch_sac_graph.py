@@ -7,17 +7,16 @@ gradient, every parameter and target, and Adam's moments and step count,
 through a key's eager first update, its capture and its replays; after
 ``load_state_dict`` and ``BatchedSAC.restore_checkpoint`` (which replace
 the state tensors a graph read); for another batch size and for the
-host-loop SAC's one agent without a mask. On the CPU the update runs
-eagerly, records its four spans and leaves no graph; a caller that wraps
+host-loop SAC's one agent without a mask. On the CPU a caller that wraps
 the module global ``citylearn_tpu_torch.train.sac_update`` sees each
-update once.
+update once. The graph's mechanism, shared with the district step, and
+what it does alike for both (the CPU runs eagerly; copies start without a
+graph) are tested in ``test_torch_graphs.py``.
 
 This file imports no JAX: the ``gpu`` tests run on the card with
 ``python -m pytest --noconftest -m gpu tests/test_torch_sac_graph.py``."""
 
 import copy
-import pickle
-import threading
 
 import pytest
 import torch
@@ -104,9 +103,9 @@ def needs_card():
         pytest.skip("needs a CUDA card: the update's graph is a CUDA graph")
 
 
-# --- the CPU ---------------------------------------------------------------------
-
-def test_cpu_update_runs_eagerly():
+def eager_updates():
+    """Three updates on the CPU; (their recording, the nets' graph) for
+    ``test_torch_graphs.py::test_cpu_runs_eagerly``."""
     gen = torch.Generator().manual_seed(0)
     nets = sac.make_agent_nets(3, 7, 2, (16, 16), 3e-4, gen, "cpu")
     assert not any(g["capturable"] for k in nets.OPTS for g in getattr(nets, k).param_groups)
@@ -115,8 +114,10 @@ def test_cpu_update_runs_eagerly():
         for _ in range(3):
             sac.sac_update(nets, batch, noise, *action_bounds(3, 2, "cpu"), **HP)
     assert spans(rec, *EAGER_SPANS) == (3, 3, 3, 3)
-    assert spans(rec, "sac.graph", "sac.capture") == (0, 0)
-    assert nets._graph is None
+    return rec, nets.update_graph
+
+
+# --- the CPU ---------------------------------------------------------------------
 
 
 def test_wrapped_global_sees_each_update_once(dataset, monkeypatch):
@@ -156,9 +157,9 @@ def test_loaded_state_fits_the_device(saved_capturable):
     if saved_capturable:
         for k in nets.OPTS:
             state[k]["param_groups"][0]["capturable"] = True
-    nets._graph = object()
+    nets.update_graph.key = ("a key",)
     nets.load_state_dict(state)
-    assert nets._graph is None
+    assert nets.update_graph.key is None
     for k in nets.OPTS:
         opt = getattr(nets, k)
         assert opt.param_groups[0]["capturable"] is False
@@ -166,31 +167,6 @@ def test_loaded_state_fits_the_device(saved_capturable):
     sac.sac_update(nets, batch, noise, *consts, **HP)
     sac.sac_update(ref, batch, noise, *consts, **HP)
     assert_nets_equal(nets, ref)
-
-
-def test_copies_start_without_the_graph():
-    """A copy or a pickle (the CLI pickles the host-loop agents) of nets
-    that hold a graph, which can be neither, holds none."""
-    gen = torch.Generator().manual_seed(0)
-    nets = sac.make_agent_nets(1, 4, 1, (8,), 3e-4, gen, "cpu")
-    nets._graph = graph = threading.Lock()
-    for copied in (copy.deepcopy(nets), pickle.loads(pickle.dumps(nets))):
-        assert copied._graph is None
-        assert torch.equal(copied.policy.mean_w, nets.policy.mean_w)
-    assert nets._graph is graph
-    assert "_graph" not in nets.state_dict()
-
-
-def test_static_inputs_keep_the_callers_layout():
-    """The graph's input buffers (``torch.empty_strided`` of each input's
-    shape and strides) take the update's inputs as ``_update`` lays them
-    out, the expanded ``done`` included, element for element."""
-    batch, noise = update_inputs(5, 36, 1, 64, 3, "cpu")
-    for x in (*batch, *noise):
-        buf = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype)
-        sac._distinct(buf).copy_(sac._distinct(x))
-        assert buf.stride() == x.stride() and torch.equal(buf, x)
-    assert batch[4].stride()[0] == 0 and sac._distinct(batch[4]).shape == (1, 64)
 
 
 # --- the card ----------------------------------------------------------------
@@ -228,7 +204,7 @@ def test_graph_after_load_state_dict():
     # each its own copy: Adam's load_state_dict keeps the tensors it is given
     nets.load_state_dict(copy.deepcopy(saved))
     ref.load_state_dict(copy.deepcopy(saved))
-    assert nets._graph is None
+    assert nets.update_graph.key is None
     with tracing.recording() as rec:
         for i in range(4):
             step_both(nets, ref, update_inputs(5, 36, 1, 256, 400 + i, "cuda"), consts)
@@ -245,10 +221,10 @@ def test_graph_after_restore_checkpoint(dataset, tmp_path, monkeypatch):
     tr.train(16, chunk=16)
     tr.save_checkpoint(str(tmp_path))
     tr.train(16, chunk=16)
-    assert tr.state.nets._graph.graph is not None
+    assert tr.state.nets.update_graph.captured is not None
     tr.restore_checkpoint(str(tmp_path))
     ref.restore_checkpoint(str(tmp_path))
-    assert tr.state.nets._graph is None
+    assert tr.state.nets.update_graph.key is None
     with tracing.recording() as rec:
         tr.train(20, chunk=20)
     assert spans(rec, "train.update", "sac.graph", "sac.capture") == (20, 19, 1)

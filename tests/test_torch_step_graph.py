@@ -9,21 +9,21 @@ district and at the Gym env's D=1, ``step_packed``'s flat output included;
 with one capture per key over two episodes, and a fresh capture after
 each reset of a stochastic-outage env (which replaces its parameters); and
 through the env and the trainer on the thermal, EV and neighborhood
-districts. On the CPU, with the physics checks on and in the float64
-parity mode the step runs eagerly and leaves no graph. The key changes with the
-parameters' identity, the action names and a shape, and not between a
-state fresh from a reset and a stepped one. A caller that wraps the
-module globals ``citylearn_tpu_torch.train.district_step`` or
+districts. The key changes with the parameters' identity, the action
+names and a shape, and not between a state fresh from a reset and a
+stepped one. A caller that wraps the module globals
+``citylearn_tpu_torch.train.district_step`` or
 ``citylearn_tpu_torch.envs.environment.step_packed`` (four arguments)
-sees each step once, inside the owner's block.
+sees each step once, inside the owner's block. The graph's mechanism,
+shared with ``sac_update``, and what it does alike for both (the CPU runs
+eagerly, also with the physics checks on and in the float64 parity mode;
+copies start without a graph) are tested in ``test_torch_graphs.py``.
 
 This file imports no JAX: the ``gpu`` tests run on the card with
 ``python -m pytest --noconftest -m gpu tests/test_torch_step_graph.py``."""
 
 import contextlib
-import copy
 import dataclasses
-import pickle
 import warnings
 
 import numpy as np
@@ -130,13 +130,11 @@ def needs_card():
         pytest.skip("needs a CUDA card: the step's graph is a CUDA graph")
 
 
-# --- the CPU ---------------------------------------------------------------------
-
-@pytest.mark.parametrize("mode", ["plain", "checks", "parity"])
-def test_cpu_runs_eagerly(battery_schema, lstm_schema, mode):
-    """On the CPU, with the physics checks on and in the parity mode, the
-    helper returns what eager ``district_step`` returns, records no span
-    of its own and keeps no graph."""
+def eager_steps(mode, battery_schema, lstm_schema):
+    """14 steps on the CPU (``mode``: plain, with the physics checks on or
+    in the parity mode), each equal to eager ``district_step``'s; (their
+    recording, the owner's graph) for
+    ``test_torch_graphs.py::test_cpu_runs_eagerly``."""
     if mode == "parity":
         env = CityLearnEnv(battery_schema, device="cpu", parity_f64=True,
                            episode_time_steps=EPISODE)
@@ -162,9 +160,10 @@ def test_cpu_runs_eagerly(battery_schema, lstm_schema, mode):
                 assert_trees_equal(out, ref, f"output {t}")
     finally:
         debug.enable_checks(False)
-    assert spans(rec, "step.graph", "step.capture") == (0, 0)
-    assert graph.key is None and graph.graph is None
+    return rec, graph.graph
 
+
+# --- the CPU ---------------------------------------------------------------------
 
 def test_run_disengages_and_blocks_nest():
     a, b, seen = StepGraph(), StepGraph(), []
@@ -183,14 +182,6 @@ def test_run_disengages_and_blocks_nest():
         a.run(lambda *args: seen.append(engaged_graph()), Cfg, None, State, {})
         assert engaged_graph() is a
     assert engaged_graph() is None and seen == [None]
-
-
-def test_copies_start_without_a_graph():
-    graph = StepGraph()
-    graph.key, graph.graph = ("a key",), object()
-    for copied in (copy.deepcopy(graph), pickle.loads(pickle.dumps(graph))):
-        assert isinstance(copied, StepGraph) and copied.key is None and copied.graph is None
-    assert graph.graph is not None
 
 
 def _key_cases(cfg, params, state, acts):
@@ -216,9 +207,9 @@ def test_key_changes_with_what_the_capture_reads(lstm_schema, change):
     state = batched_initial_states(cfg, params, 4, device="cpu")
     acts = step_actions(cfg, 4, torch.Generator().manual_seed(1), "cpu")
     stepped, _ = district_step(cfg, params, state, acts)
-    key, _ = key_of(district_step, cfg, params, stepped, acts)
-    assert key_of(district_step, cfg, params, stepped, dict(acts))[0] == key
-    assert key_of(district_step, *_key_cases(cfg, params, state, acts)[change])[0] != key
+    key = key_of(district_step, cfg, params, stepped, acts)
+    assert key_of(district_step, cfg, params, stepped, dict(acts)) == key
+    assert key_of(district_step, *_key_cases(cfg, params, state, acts)[change]) != key
 
 
 def test_reset_state_keys_as_a_stepped_one(lstm_schema, battery_schema):
@@ -229,7 +220,7 @@ def test_reset_state_keys_as_a_stepped_one(lstm_schema, battery_schema):
     acts = tr._actions_dict(torch.zeros((8, tr.env_cfg.n_buildings, tr.act_dim)))
     reset = tr._broadcast_initial(torch.arange(8, dtype=torch.int32))
     stepped, _ = district_step(tr.env_cfg, tr.params, tr.state.env_state, acts)
-    key = lambda st: key_of(district_step, tr.env_cfg, tr.params, st, acts)[0]
+    key = lambda st: key_of(district_step, tr.env_cfg, tr.params, st, acts)
     assert key(reset) == key(stepped) == key(tr.state.env_state)
 
     env = CityLearnEnv(battery_schema, device="cpu", episode_time_steps=EPISODE)
@@ -238,7 +229,7 @@ def test_reset_state_keys_as_a_stepped_one(lstm_schema, battery_schema):
     acts = env._device_actions(env._parse_actions(
         [np.zeros(s.shape[0], np.float32) for s in env.action_space]))
     env.step([np.zeros(s.shape[0], np.float32) for s in env.action_space])
-    key = lambda st: key_of(environment._packed_step, env.cfg, env.params, st, acts)[0]
+    key = lambda st: key_of(environment._packed_step, env.cfg, env.params, st, acts)
     assert key(fresh) == key(env._state)
 
 
@@ -365,7 +356,7 @@ def test_stochastic_outage_env_recaptures_after_reset(outage_schema, monkeypatch
     with tracing.recording() as rec:
         step_pair(ours, ref, 2 * (EPISODE - 1), monkeypatch, seed=7)
     assert spans(rec, "step.capture") == (2,)
-    assert ours._step_graph.key[2].obj is ours.params
+    assert ours._step_graph.graph._same[2] is ours.params
 
 
 @pytest.mark.gpu
