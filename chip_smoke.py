@@ -45,7 +45,21 @@ Phases, each of which raises on failure:
      split into collect and updates, and K2 bit-equal and timed on the
      inputs that the trainer hands it in one more chunk; (d) ``evaluate``
      of the trained policy over 168 steps, and of a scripted baseline
-     through K1;
+     through K1; (e) the twin soft-Q kernels (``twin_q``) on the main
+     path: the update's graph captured anew by one chunk, with
+     ``twin_q.launches`` reset just before and read just after (6 launches
+     a hidden layer for each ``_sac_step`` run), and every replay of one
+     more chunk running the twin kernels, 6 a hidden layer, under the
+     profiler; then the kernels on the trainer's own critics and one batch
+     its update drew, and on seeded critics and rows at cell
+     ``challenge2022_phase1.sac_train``'s shapes (A=5, N=256,
+     37 -> 256 -> 256 -> 1): values against two ``SoftQ.forward`` calls,
+     and every parameter's gradient (the critics' loss) and the action's
+     alone (the policy loss) against the plain version in float64 on the
+     kernels' relu branches, each branch that float64 takes otherwise
+     within rounding of 0; at the cell's shapes the update's three passes
+     timed as CUDA graphs, kernels against two ``SoftQ.forward`` calls and
+     autograd, beside their fp32 bound;
   9. write a seeded 9-building, 8760-row thermal-storage dataset (cooling
      and DHW devices and tanks, battery, PV: the shape of
      ``citylearn_challenge_2021``), compile it and pack it on the card;
@@ -251,6 +265,7 @@ writes every number measured to PATH. Without a CUDA card it exits 1.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -290,6 +305,7 @@ from citylearn_tpu_torch.ops import lstm as k5
 from citylearn_tpu_torch.ops import neighborhood as k6
 from citylearn_tpu_torch.ops import postpass as p6
 from citylearn_tpu_torch.ops import thermal as k3
+from citylearn_tpu_torch.ops import twin_q as twin_q_mod
 from citylearn_tpu_torch.synthetic import (
     write_battery_choices,
     write_battery_pv_dataset,
@@ -299,7 +315,7 @@ from citylearn_tpu_torch.synthetic import (
     write_neighborhood_dataset,
     write_thermal_dataset,
 )
-from citylearn_tpu_torch import cli
+from citylearn_tpu_torch import cli, tracing
 from citylearn_tpu_torch import train as train_module
 from citylearn_tpu_torch.core import rollout_fast
 from citylearn_tpu_torch.parallel import (
@@ -318,6 +334,7 @@ from citylearn_tpu_torch.train_marlisa import BatchedMARLISA
 from citylearn_tpu_torch.core import debug
 from citylearn_tpu_torch.core.step import district_step
 from citylearn_tpu_torch.end_use_load_profiles import Neighborhood
+from citylearn_tpu_torch.graphs import Graph
 from citylearn_tpu_torch.end_use_load_profiles import build as gen_build
 from citylearn_tpu_torch.end_use_load_profiles import lstm as gen_lstm
 from citylearn_tpu_torch.utilities import Profiler
@@ -391,6 +408,17 @@ FAMILY_CHUNK = 8                      # steps of each timed chunk
 EV_REWARD_FROM = 16                   # the synthetic EV district docks no EV before this step
 MARLISA_EVERY = 8                     # phase 27's regression_update_every
 TOL_PATHS = 2e-5              # per-step vs kernel collect: replay rows and state
+# the twin soft-Q kernels against the plain version in float64, each relu
+# on the kernels' branch (tests/test_torch_twin_q.py): values relative to
+# their mean magnitude, each gradient leaf by the norm of its difference
+# over the reference's; a branch float64 takes otherwise has its
+# pre-activation within TWIN_FLIP_EPS float32 epsilons of |x| @ |W| + |b|,
+# on one and TWIN_FLIP_SHARE of the elements at most
+TOL_TWIN = 1e-5
+TWIN_FLIP_EPS, TWIN_FLIP_SHARE = 32, 1e-5
+TWIN_KERNELS = ("forward_layer", "rows_layer", "columns_layer")
+# cell challenge2022_phase1.sac_train's critics: A, K, M, hidden (N: TRAIN's batch)
+TWIN_CELL = (5, 36, 1, (256, 256))
 # phase 28: the Gym env's steps per family (None: the whole year), its KPI
 # rows against evaluate_scripted's table (the JAX package's
 # tests/test_evaluate_batched.py:60), and the parity mode on the card
@@ -1639,6 +1667,167 @@ def check_trained(tr, w0, hist, label, reward_from=0):
     if not float(rew[reward_from:].abs().max()) > 0:
         raise AssertionError(f"{label}: every reward from step {reward_from} on is zero")
     return moved
+
+
+def twin_q_grads(values, nets, act, dq, param_grads):
+    """The gradients of sum(dq * values) to both networks' parameters or,
+    without ``param_grads``, to ``act`` alone."""
+    loss = (dq[0] * values[0]).sum() + (dq[1] * values[1]).sum()
+    return torch.autograd.grad(loss, [*nets[0].parameters(), *nets[1].parameters()]
+                               if param_grads else [act])
+
+
+def twin_q_check(q1, q2, obs, act, label):
+    """``twin_q``'s kernels on ``obs`` and ``act`` (a leaf), both ways
+    that the update asks: values against two ``SoftQ.forward`` calls and
+    against the plain version in float64 on the kernels' relu branches,
+    whose flips it checks, and every parameter's gradient, then the
+    action's alone, against the float64 one; returns the worst of each
+    reading."""
+    A, N, _ = obs.shape
+    dq = torch.randn((2, A, N, 1), generator=torch.Generator(device=obs.device).manual_seed(SEED),
+                     device=obs.device)
+    wide = [copy.deepcopy(q).double() for q in (q1, q2)]
+    wide_act = act.detach().double().requires_grad_()
+    gap = lambda ours, ref: max(float(torch.linalg.vector_norm((x - y).double())
+                                      / torch.linalg.vector_norm(y.double()))
+                                for x, y in zip(ours, ref))
+    value_gap = lambda ours, ref: max(float((x - y).detach().abs().max() / y.abs().mean())
+                                      for x, y in zip(ours, ref))
+    worst = {}
+    for param_grads in (True, False):
+        out = twin_q_mod.twin_q(q1, q2, obs, act, param_grads=param_grads)
+        branches = twin_q_mod.relu_branches(out[0])
+        ref, pre, scale = twin_q_mod.reference(*wide, obs.double(), wide_act, relu=branches)
+        flips, flip_eps = twin_q_mod.branch_flips(branches, pre, scale)
+        with torch.no_grad():
+            plain = (q1(obs, act), q2(obs, act))
+        found = {"value_gap": value_gap(out, ref), "plain_value_gap": value_gap(out, plain),
+                 "grad_gap": gap(twin_q_grads(out, (q1, q2), act, dq, param_grads),
+                                 twin_q_grads(ref, wide, wide_act, dq.double(), param_grads)),
+                 "flips": flips, "flip_eps": flip_eps,
+                 "max_abs_err": max(float((x - y).abs().max()) for x, y in zip(out, plain))}
+        print(f"{label}, param_grads={param_grads}: " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in found.items()))
+        n_elements = sum(b.numel() for b in branches)
+        if flip_eps > TWIN_FLIP_EPS or flips > 1 + TWIN_FLIP_SHARE * n_elements:
+            raise AssertionError(f"{label}: {flips} relu branches of {n_elements} differ from "
+                                 f"float64's, up to {flip_eps:.3g} epsilons of their scale")
+        if not (found["value_gap"] < TOL_TWIN and found["plain_value_gap"] < TOL_TWIN
+                and found["grad_gap"] < TOL_TWIN):
+            raise AssertionError(f"{label}: twin_q against the plain version: {found}")
+        worst = {k: max(v, worst.get(k, v)) for k, v in found.items()}
+    return worst
+
+
+def twin_q_times(q1, q2, obs, act, nxt):
+    """Device milliseconds of an update's three twin passes (the target's,
+    the critics' with their parameters' gradients, the policy loss's with
+    the action's), the kernels and two ``SoftQ.forward`` calls with
+    autograd, each as a CUDA graph of 20; and the passes' fp32 operations
+    in their products."""
+    A, N, K = obs.shape
+    M = act.shape[-1]
+    dq = torch.randn((2, A, N, 1), device=obs.device)
+    plain = lambda q1_, q2_, o, a, param_grads=True: (q1_(o, a), q2_(o, a))
+
+    def passes(fn):
+        with torch.no_grad():
+            fn(q1, q2, nxt, act.detach())
+        twin_q_grads(fn(q1, q2, obs, act), (q1, q2), act, dq, True)
+        twin_q_grads(fn(q1, q2, obs, act, param_grads=False), (q1, q2), act, dq, False)
+
+    side = torch.cuda.Stream()       # PyTorch's warm-up of autograd before a capture
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in (twin_q_mod.twin_q, plain) * 3:
+            passes(fn)
+    torch.cuda.current_stream().wait_stream(side)
+    kernel_ms = time_graph(lambda: passes(twin_q_mod.twin_q), 20)
+    plain_ms = time_graph(lambda: passes(plain), 20)
+    sizes = [K + M, *(g.shape[-1] for g in q1.ln_scale), 1]
+    layers = list(zip(sizes[:-1], sizes[1:]))
+    products = lambda pairs: 2 * 2 * A * N * sum(i * o for i, o in pairs)
+    n_ops = (3 * products(layers)                               # three forwards
+             + products(layers) + products(layers[1:])          # the critics': dW, dX past layer 0
+             + products(layers[1:]) + products([(M, sizes[1])]))    # the policy loss's dX
+    return kernel_ms, plain_ms, n_ops
+
+
+def twin_q_path(dev, tr, results):
+    """Phase 8(e): the twin soft-Q kernels on the main path of the trainer
+    ``tr``, on its own critics and at the cell's shapes; returns the row
+    of the ``kernels`` line."""
+    nets = tr.state.nets
+    per_step = 6 * len(nets.q1.ln_scale)     # launches a _sac_step: 3 L forward, 3 L backward
+    nets.update_graph = Graph("sac")         # captured anew by the next chunk
+    twin_q_mod.twin_q.launches = 0
+    batches = []
+    shipped = train_module.sac_update
+
+    def keep(agent_nets, batch, *args, **kw):
+        if not batches:
+            batches.append([x.clone() for x in batch])
+        return shipped(agent_nets, batch, *args, **kw)
+
+    train_module.sac_update = keep
+    try:
+        with tracing.recording() as rec:
+            tr.train(K_CHUNK, chunk=K_CHUNK)
+        torch.cuda.synchronize()
+    finally:
+        train_module.sac_update = shipped
+    launches = twin_q_mod.twin_q.launches
+    steps, replays = len(rec.durations("sac.target")), len(rec.durations("sac.graph"))
+    print(f"(e) {K_CHUNK} steps capturing the update anew: twin_q launches {launches}, "
+          f"{len(rec.durations('twin_q'))} twin passes, {steps} _sac_step runs (eager and "
+          f"capture), {replays} replays")
+    if not steps or launches != per_step * steps or not replays:
+        raise AssertionError(f"want {per_step} twin_q launches in each of the {steps} "
+                             f"_sac_step runs and replays after them, got {launches} launches "
+                             f"and {replays} replays")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof, \
+            tracing.recording() as rec:
+        tr.train(K_CHUNK, chunk=K_CHUNK)
+        torch.cuda.synchronize()
+    replays = len(rec.durations("sac.graph"))
+    twin_kernels = sum(e.count for e in prof.key_averages()
+                       if any(k in e.key for k in TWIN_KERNELS))
+    print(f"one more chunk under the profiler: {replays} replays, {twin_kernels} twin kernels "
+          f"on the device")
+    if not replays or twin_kernels != per_step * replays:
+        raise AssertionError(f"want {per_step} twin kernels in each of {replays} replays, "
+                             f"got {twin_kernels}")
+
+    # the kernels on the trainer's critics and a batch its update drew,
+    # then at the cell's shapes on seeded networks and rows, where they are
+    # also timed (the checks first: PyTorch ties an autograd graph's leaves
+    # to the stream that made them, so none may live into a capture)
+    obs, act, _, nxt, _ = batches[0]
+    print(f"the trainer's batch: A, N, K, M = {(*obs.shape, act.shape[-1])}")
+    worst = twin_q_check(nets.q1, nets.q2, obs, act.requires_grad_(), "the trainer's critics")
+    (A, K, M, hidden), N = TWIN_CELL, TRAIN["batch_size"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q1, q2 = (sac.SoftQ(A, K, M, hidden, gen, dev) for _ in range(2))
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    obs, nxt = (draw(N, A * K).view(N, A, K).transpose(0, 1) for _ in range(2))
+    act = draw(A, N, M).tanh().requires_grad_()
+    cell = twin_q_check(q1, q2, obs, act, f"A={A}, N={N}, {K + M} -> {hidden} -> 1")
+    worst = {k: max(v, cell[k]) for k, v in worst.items()}
+    kernel_ms, plain_ms, n_ops = twin_q_times(q1, q2, obs, act, nxt)
+    bound_ms = n_ops / PEAK_FP32 * 1e3
+    print(f"twin_q at A={A}, N={N}, {K + M} -> {hidden} -> 1: an update's three passes "
+          f"{kernel_ms:.4f} ms on the device (CUDA graphs of 20), plain (two SoftQ.forward and "
+          f"autograd) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({n_ops / 1e9:.4f} GFLOP of "
+          f"products at {PEAK_FP32 / 1e12:g} TFLOP/s fp32), share of bound "
+          f"{bound_ms / kernel_ms:.2%}; build: {ptxas_report(results, 'twin_q')}")
+    results.update(twin_q_launches=launches, twin_q_ms=kernel_ms, twin_q_plain_ms=plain_ms,
+                   twin_q_bound_ms=bound_ms, twin_q_bound_ops=n_ops,
+                   **{f"twin_q_{k}": v for k, v in worst.items()})
+    return {"name": "twin_q", "route": "cuda", "source": "citylearn_tpu_torch/csrc/twin_q.cu",
+            "replaces": None, "launches": launches, "max_abs_err": worst["max_abs_err"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": None}
 
 
 def family_training(dev, results):
@@ -3173,6 +3362,8 @@ def main(json_path=None):
           f"cost_total {float(learned['district|cost_total'].mean()):.6f}; scripted "
           f"baseline through K1 ({k1.battery_episode.launches} launch), cost_total "
           f"{float(baseline['district|cost_total'][0]):.6f}")
+    twin_kernel = twin_q_path(dev, tr, results)
+    del tr
 
     thermal_kernel = thermal_path(dev, results)
     ev_kernel = ev_path(dev, results)
@@ -3199,7 +3390,8 @@ def main(json_path=None):
         "launches": k2_launches, "max_abs_err": k2_max_abs, "ms": k2_ms,
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
-        "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels]}
+        "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels,
+        twin_kernel]}
     # the main path's launches of phases 29, 30 and 31 beside each row's own
     row_of = {"postpass_kernel": "neighborhood_postpass"}
     for row in kernels["kernels"]:

@@ -22,9 +22,11 @@ replay ring and normalization statistics, steps the env through
 explores with a rule-based controller.
 
 On CUDA inputs :func:`sac_update` replays one CUDA graph of the whole
-update (targets, both critics, the policy, both Adam steps, Polyak) in
-place of its ~620 eager launches (:mod:`citylearn_tpu_torch.graphs`);
-elsewhere it runs the update eagerly.
+update (targets, both critics, the policy, both Adam steps, Polyak)
+(:mod:`citylearn_tpu_torch.graphs`); elsewhere it runs the update
+eagerly. Each pair of critics, (q1, q2) or their targets, goes through
+one twin pass (:func:`citylearn_tpu_torch.ops.twin_q.twin_q`): on the
+card a set of hand-written kernels, a launch a layer for both.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from citylearn_tpu_torch import resolve_device, tracing
 from citylearn_tpu_torch.agents.rbc import RBC, BasicRBC
 from citylearn_tpu_torch.agents.rlc import RLC
 from citylearn_tpu_torch.graphs import Graph
+from citylearn_tpu_torch.ops.twin_q import twin_q
 from citylearn_tpu_torch.preprocessing import RemoveFeature, encode
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -336,24 +339,24 @@ def _sac_step(nets: AgentNets, batch, noise: Tuple[torch.Tensor, torch.Tensor],
     with tracing.span("sac.target"), torch.no_grad():
         next_a, next_log_pi, _ = policy_sample(nets.policy, n, noise_next,
                                                action_scale, action_bias, act_mask)
-        tq = torch.minimum(nets.q1_target(n, next_a), nets.q2_target(n, next_a)) \
+        tq = torch.minimum(*twin_q(nets.q1_target, nets.q2_target, n, next_a)) \
             - alpha * next_log_pi
         q_target = r[..., None] + (1 - d[..., None]) * discount * tq
 
-    losses = {}
+    # both critics' losses before either Adam step: neither reads the other
     with tracing.span("sac.critic"):
-        for name in ("q1", "q2"):
-            q, opt = getattr(nets, name), getattr(nets, f"{name}_opt")
-            loss = huber_loss(q(o, a), q_target).mean(dim=(1, 2))
-            params = list(q.parameters())
-            _adam_step(opt, params, torch.autograd.grad(loss.sum(), params))
-            losses[name] = loss.detach()
+        loss = [huber_loss(q, q_target).mean(dim=(1, 2)) for q in twin_q(nets.q1, nets.q2, o, a)]
+        params = [list(nets.q1.parameters()), list(nets.q2.parameters())]
+        grads = torch.autograd.grad(loss[0].sum() + loss[1].sum(), params[0] + params[1])
+        _adam_step(nets.q1_opt, params[0], grads[:len(params[0])])
+        _adam_step(nets.q2_opt, params[1], grads[len(params[0]):])
+        losses = {"q1": loss[0].detach(), "q2": loss[1].detach()}
 
     # the policy loss reads the UPDATED Q nets; no gradient flows into them
     with tracing.span("sac.policy"):
         new_a, log_pi, _ = policy_sample(nets.policy, o, noise_pi, action_scale,
                                          action_bias, act_mask)
-        q_new = torch.minimum(nets.q1(o, new_a), nets.q2(o, new_a))
+        q_new = torch.minimum(*twin_q(nets.q1, nets.q2, o, new_a, param_grads=False))
         loss = (alpha * log_pi - q_new).mean(dim=(1, 2))
         params = list(nets.policy.parameters())
         _adam_step(nets.policy_opt, params, torch.autograd.grad(loss.sum(), params))

@@ -22,7 +22,12 @@ for each, in one process:
    its middle;
 3. on-cost: ``--pairs`` pairs of one call (300 steps) with the tracer on
    and off, in alternating order; calls (steps) a second of each side and
-   the paired relative difference's quartiles.
+   the paired relative difference's quartiles;
+4. the SAC cells' update graph (``update_graph``), captured anew by one
+   call: the twin soft-Q passes (span ``twin_q``) and kernel launches
+   (``twin_q.launches``) a ``_sac_step`` run makes, then the graph's replays alone under the device trace: the
+   device kernels one replay runs, the twin kernels' count and device time
+   a replay, and the kernels that take most of it.
 
 The per-step LSTM cell runs a quarter of ``--calls`` and of ``--pairs``
 (a call is 64 district steps there, each with its own update), and adds
@@ -166,6 +171,49 @@ def on_off(pairs: int, once) -> dict:
             "off_spread_pct": 100.0 * (spread[2] - spread[0]) / statistics.median(off)}
 
 
+TWIN_KERNELS = ("forward_layer", "rows_layer", "columns_layer")
+
+
+def update_graph_kernels(tr, job, replays: int = 32) -> dict:
+    """The update's CUDA graph captured anew by one train call: the twin
+    soft-Q forward passes (span ``twin_q``) and kernel launches
+    (``twin_q.launches``) per ``_sac_step`` run (the eager first update and
+    the capture: a replay runs no Python); then
+    ``replays`` replays of the graph alone under the device trace: the
+    device kernels a replay runs, the twin kernels' count and device time a
+    replay (``csrc/twin_q.cu``), the replay's busy time, and the kernels
+    that took most of it. The replays update the nets once more each, so
+    this runs last in its cell."""
+    from citylearn_tpu_torch.graphs import Graph
+    from citylearn_tpu_torch.ops.twin_q import twin_q
+
+    nets = tr.state.nets
+    nets.update_graph = Graph("sac")
+    before = twin_q.launches
+    with tracing.recording() as rec:
+        tr.train(job.chunk, chunk=job.chunk)
+    torch.cuda.synchronize()
+    steps = len(rec.durations("sac.target"))
+    run = harness.Run()
+    with harness.device_trace(run):
+        for _ in range(replays):
+            nets.update_graph.captured.replay()
+    twin_s, twin_n = run.kernel_seconds(lambda name: any(k in name for k in TWIN_KERNELS))
+    by_name = {}
+    for name, s, e in run.device_ops:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"sac_steps": steps, "sac.capture": len(rec.durations("sac.capture")),
+            "twin_passes_per_sac_step": len(rec.durations("twin_q")) / steps if steps else None,
+            "twin_launches_per_sac_step": (twin_q.launches - before) / steps if steps else None,
+            "replays": replays, "kernels_per_replay": len(run.device_ops) / replays,
+            "twin_kernels_per_replay": twin_n / replays,
+            "twin_ms_per_replay": 1e3 * twin_s / replays,
+            "kernel_ms_per_replay": 1e3 * sum(by_name.values()) / replays,
+            "busy_ms_per_replay": 1e3 * run.busy_s() / replays,
+            "top_kernels_ms_per_replay": [[name[:96], 1e3 * t / replays] for name, t in top]}
+
+
 def traced(fn):
     run, rec = harness.Run(), None
     with harness.device_trace(run), tracing.recording() as rec:
@@ -196,6 +244,7 @@ def sac_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
            "call_children_ms": children * 1e-6 / calls, "graph": graph_share(table)}
     out["trace"] = traced(lambda: (once(), once()))
     out["on_off"] = on_off(pairs, once)
+    out["update_graph"] = update_graph_kernels(tr, job)
     del tr
     torch.cuda.empty_cache()
     return out
@@ -231,6 +280,7 @@ def scan_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
                100.0 * total("step.partial_load") / outside if steps else None}
     out["trace"] = traced(once)
     out["on_off"] = on_off(pairs, once)
+    out["update_graph"] = update_graph_kernels(tr, job)
     del tr
     torch.cuda.empty_cache()
     return out
