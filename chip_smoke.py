@@ -167,7 +167,13 @@ Phases, each of which raises on failure:
      which no EV docks), the train step's ms and district-steps/s split
      into collect and updates, ``evaluate`` of the learned policy over 168
      steps, and of the family's scripted plan, which must launch the
-     family's kernel (K3, K4, K5, K6 and P6);
+     family's kernel (K3, K4, K5, K6 and P6); on the EV trainer, whose
+     critics have cell ``challenge2022_phase_all_plus_evs.sac_train``'s
+     shapes (A=17, N=256, 43 + 3 -> 256 -> 256 -> 1, the padded action
+     slots masked), phase 8(e) again: the launch count of the update
+     captured anew, the twin kernels of every replay, the kernels on its
+     critics and a batch it drew, and on seeded critics and rows at its
+     shapes under its mask, timed beside their fp32 bound;
  27. ``BatchedMARLISA`` on the battery+PV district at D=4096 with phase 8's
      settings and a ridge refit every 8 steps: 32 steps after which the
      ridge weights and the coordination variables are non-zero and each
@@ -419,6 +425,9 @@ TWIN_FLIP_EPS, TWIN_FLIP_SHARE = 32, 1e-5
 TWIN_KERNELS = ("forward_layer", "rows_layer", "columns_layer")
 # cell challenge2022_phase1.sac_train's critics: A, K, M, hidden (N: TRAIN's batch)
 TWIN_CELL = (5, 36, 1, (256, 256))
+# cell challenge2022_phase_all_plus_evs.sac_train's, which phase 26's EV trainer
+# has (EV_SHAPE's district: 17 agents, 3 action slots, the unused ones masked)
+TWIN_EV_CELL = (17, 43, 3, (256, 256))
 # phase 28: the Gym env's steps per family (None: the whole year), its KPI
 # rows against evaluate_scripted's table (the JAX package's
 # tests/test_evaluate_batched.py:60), and the parity mode on the card
@@ -1754,10 +1763,12 @@ def twin_q_times(q1, q2, obs, act, nxt):
     return kernel_ms, plain_ms, n_ops
 
 
-def twin_q_path(dev, tr, results):
-    """Phase 8(e): the twin soft-Q kernels on the main path of the trainer
-    ``tr``, on its own critics and at the cell's shapes; returns the row
-    of the ``kernels`` line."""
+def twin_q_path(dev, tr, results, cell=TWIN_CELL, key="twin_q", mask=None):
+    """Phase 8(e), and phase 26 on the EV trainer: the twin soft-Q kernels
+    on the main path of the trainer ``tr``, on its own critics and at the
+    shapes ``cell`` of a benchmark cell, the seeded actions 0 where
+    ``mask`` (A, M) is, as the trainer's padded slots are; returns the row
+    ``key`` of the ``kernels`` line."""
     nets = tr.state.nets
     per_step = 6 * len(nets.q1.ln_scale)     # launches a _sac_step: 3 L forward, 3 L backward
     nets.update_graph = Graph("sac")         # captured anew by the next chunk
@@ -1779,7 +1790,7 @@ def twin_q_path(dev, tr, results):
         train_module.sac_update = shipped
     launches = twin_q_mod.twin_q.launches
     steps, replays = len(rec.durations("sac.target")), len(rec.durations("sac.graph"))
-    print(f"(e) {K_CHUNK} steps capturing the update anew: twin_q launches {launches}, "
+    print(f"{key}: {K_CHUNK} steps capturing the update anew: twin_q launches {launches}, "
           f"{len(rec.durations('twin_q'))} twin passes, {steps} _sac_step runs (eager and "
           f"capture), {replays} replays")
     if not steps or launches != per_step * steps or not replays:
@@ -1806,14 +1817,17 @@ def twin_q_path(dev, tr, results):
     obs, act, _, nxt, _ = batches[0]
     print(f"the trainer's batch: A, N, K, M = {(*obs.shape, act.shape[-1])}")
     worst = twin_q_check(nets.q1, nets.q2, obs, act.requires_grad_(), "the trainer's critics")
-    (A, K, M, hidden), N = TWIN_CELL, TRAIN["batch_size"]
+    (A, K, M, hidden), N = cell, TRAIN["batch_size"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q1, q2 = (sac.SoftQ(A, K, M, hidden, gen, dev) for _ in range(2))
     draw = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     obs, nxt = (draw(N, A * K).view(N, A, K).transpose(0, 1) for _ in range(2))
-    act = draw(A, N, M).tanh().requires_grad_()
-    cell = twin_q_check(q1, q2, obs, act, f"A={A}, N={N}, {K + M} -> {hidden} -> 1")
-    worst = {k: max(v, cell[k]) for k, v in worst.items()}
+    act = draw(A, N, M).tanh()
+    if mask is not None:
+        act = act * mask[:, None]
+    act.requires_grad_()
+    seeded = twin_q_check(q1, q2, obs, act, f"A={A}, N={N}, {K + M} -> {hidden} -> 1")
+    worst = {k: max(v, seeded[k]) for k, v in worst.items()}
     kernel_ms, plain_ms, n_ops = twin_q_times(q1, q2, obs, act, nxt)
     bound_ms = n_ops / PEAK_FP32 * 1e3
     print(f"twin_q at A={A}, N={N}, {K + M} -> {hidden} -> 1: an update's three passes "
@@ -1821,10 +1835,10 @@ def twin_q_path(dev, tr, results):
           f"autograd) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({n_ops / 1e9:.4f} GFLOP of "
           f"products at {PEAK_FP32 / 1e12:g} TFLOP/s fp32), share of bound "
           f"{bound_ms / kernel_ms:.2%}; build: {ptxas_report(results, 'twin_q')}")
-    results.update(twin_q_launches=launches, twin_q_ms=kernel_ms, twin_q_plain_ms=plain_ms,
-                   twin_q_bound_ms=bound_ms, twin_q_bound_ops=n_ops,
-                   **{f"twin_q_{k}": v for k, v in worst.items()})
-    return {"name": "twin_q", "route": "cuda", "source": "citylearn_tpu_torch/csrc/twin_q.cu",
+    results.update({f"{key}_{k}": v for k, v in dict(
+        worst, launches=launches, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_ops=n_ops).items()})
+    return {"name": key, "route": "cuda", "source": "citylearn_tpu_torch/csrc/twin_q.cu",
             "replaces": None, "launches": launches, "max_abs_err": worst["max_abs_err"],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "library_ms": None}
@@ -1832,7 +1846,8 @@ def twin_q_path(dev, tr, results):
 
 def family_training(dev, results):
     """Phase 26: ``BatchedSAC`` on the thermal, EV, LSTM and neighborhood
-    districts, each on the per-step collect."""
+    districts, each on the per-step collect; returns the ``kernels`` line's
+    row of the twin soft-Q kernels on the EV trainer."""
     phase("26. training on the families")
     t_phase = time.perf_counter()
     families = (("thermal", thermal_rbc_tables()), ("ev", ev_plans(EV_SHAPE[1])),
@@ -1862,6 +1877,12 @@ def family_training(dev, results):
             raise AssertionError(f"{name}: the per-step path launched K2")
         moved = check_trained(tr, w0, hist, name, EV_REWARD_FROM if name == "ev" else 0)
         step_ms, collect_ms, rate = train_rates(tr, results, name)
+        if name == "ev":
+            shape = (B, tr.obs_dim, tr.act_dim, tuple(TRAIN["hidden"]))
+            if shape != TWIN_EV_CELL:
+                raise AssertionError(f"the EV trainer's critics are {shape}, not the cell's "
+                                     f"{TWIN_EV_CELL}")
+            twin_kernel = twin_q_path(dev, tr, results, TWIN_EV_CELL, "twin_q_ev", tr.act_mask)
         t0 = time.perf_counter()
         learned = tr.evaluate(n_steps=SHORT_STEPS)
         torch.cuda.synchronize()
@@ -1888,6 +1909,7 @@ def family_training(dev, results):
         del tr
     results["family_training_s"] = time.perf_counter() - t_phase
     print(f"phase 26: {results['family_training_s']:.1f} s; {nvidia_smi()}")
+    return twin_kernel
 
 
 def marlisa_training(dev, results):
@@ -3369,7 +3391,7 @@ def main(json_path=None):
     ev_kernel = ev_path(dev, results)
     lstm_kernel = lstm_path(dev, results)
     neighborhood_kernels = neighborhood_path(dev, results)
-    family_training(dev, results)
+    ev_twin_kernel = family_training(dev, results)
     marlisa_training(dev, results)
     env_path(dev, results)
     cli_launches = cli_path(dev, results)
@@ -3391,7 +3413,7 @@ def main(json_path=None):
         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes" if k2_bytes_ms > k2_ops_ms else "operations",
         "library_ms": None}, thermal_kernel, ev_kernel, lstm_kernel, *neighborhood_kernels,
-        twin_kernel]}
+        twin_kernel, ev_twin_kernel]}
     # the main path's launches of phases 29, 30 and 31 beside each row's own
     row_of = {"postpass_kernel": "neighborhood_postpass"}
     for row in kernels["kernels"]:

@@ -383,6 +383,7 @@ class _EVResult(NamedTuple):
     reward_inputs: Optional[EVRewardInputs]   # when the district uses the EV reward
 
 
+@tracing.traced("step.charging_constraints")
 def _charging_constraints(cfg: StaticConfig, params: DistrictParams, a: torch.Tensor,
                           hours_ratio: float) -> Tuple[torch.Tensor, ...]:
     """Building then phase limits on the positive kW requests of a (D, C)
@@ -427,6 +428,7 @@ def _charging_constraints(cfg: StaticConfig, params: DistrictParams, a: torch.Te
             torch.where(torch.isfinite(plim), plim - used_p, torch.zeros_like(used_p)))
 
 
+@tracing.traced("step.ev")
 def _ev_block(cfg: StaticConfig, params: DistrictParams, state: EnvState,
               a: torch.Tensor, hours_ratio: float) -> _EVResult:
     """EV chargers (reference ``electric_vehicle_charger.py:283-329``) with
@@ -519,6 +521,7 @@ def _ev_block(cfg: StaticConfig, params: DistrictParams, state: EnvState,
         reward_inputs=reward_inputs)
 
 
+@tracing.traced("step.washing_machines")
 def _washing_machines(cfg: StaticConfig, params: DistrictParams, state: EnvState,
                       a_wm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Washing machines (reference ``energy_model.py:1289-1334``): a

@@ -10,18 +10,24 @@ of the update's CUDA graph, in place of the four, and ``sac.capture``
 around the graph's capture) and ``train.readback``; inside
 ``district_step`` on an LSTM-dynamics district ``step.partial_load``
 (the partial-load demand) and ``step.dynamics`` (the LSTM's window and
-its prediction); on a CUDA card, where the per-step trainer and the Gym
+its prediction); on an EV district ``step.ev`` (the chargers and the EV
+batteries, with ``step.charging_constraints`` inside it where the
+district has charging constraints) and ``step.washing_machines``; on a
+CUDA card, where the per-step trainer and the Gym
 env replay a CUDA graph of their step (``core/step_graph.py``),
 ``step.graph`` (one replay, the copy of the state and actions into its
 buffers included) and ``step.capture`` (the graph's capture), and then
-``step.partial_load`` and ``step.dynamics`` appear only in a graph's
+the ``step.*`` spans of the step's blocks appear only in a graph's
 first, eager call and its capture, never in a replay; ``env.step``
 (``env.actions``, ``env.district_step``, ``env.readback``,
 ``env.observe``); and one span per kernel wrapper, named
 after it (``battery_episode``, ``battery_collect_chunk``,
 ``thermal_episode``, ``ev_episode``, ``lstm_episode``,
 ``neighborhood_episode``, ``postpass_kernel``). How often a layer ran is
-the number of its spans. Tracing is off by default, and then a span is one
+the number of its spans; a replayed step opens none of its blocks' spans,
+so the work of the EV step's charger block is also counted, replays
+included, in ``citylearn_tpu_torch.train.charger_steps`` (D x C a step of
+the per-step trainer). Tracing is off by default, and then a span is one
 test of a module flag that returns a shared no-op: no clock is read,
 nothing is allocated and ``torch.profiler`` is not touched.
 :func:`recording` switches it on for a block::

@@ -104,6 +104,12 @@ from citylearn_tpu_torch.parallel.mesh import (
 )
 
 
+# district-charger steps the per-step collect has taken in this process (on
+# an EV district, this rank's D x C a step, replays of the step's graph
+# included): the charger block's work as a count, read beside the spans
+charger_steps = 0
+
+
 class TrainConfig(NamedTuple):
     n_districts: int = 256
     hidden: tuple = (256, 256)
@@ -454,6 +460,8 @@ class BatchedSAC:
         actions = self._actions_dict(a_env)
         with self._step_graph.engaged():
             env_state, out = district_step(self.env_cfg, self.params, ts.env_state, actions)
+        global charger_steps
+        charger_steps += n * self.env_cfg.n_chargers
         reward = out.reward * cfg.reward_scale                 # (n, A)
         next_obs = self._encoded_obs(env_state)
 

@@ -8,6 +8,10 @@
 - Spans nest: parent and root ids, per thread; a recording inside another
   is the outer one.
 - The span counts agree with the trainer's cadence and the env's steps.
+- On an EV district an eager ``district_step`` opens ``step.ev`` (with
+  ``step.charging_constraints`` inside it where the district has
+  constraints) and ``step.washing_machines``, and the per-step trainer
+  counts D x C charger steps a step in ``train.charger_steps``.
 - The spans' clock is the one ``torch.profiler`` places its events on.
 - Inside ``utilities.Profiler`` the Chrome trace names the program's spans
   and K1's wrapper; a ``Profiler`` inside a recording leaves it every span.
@@ -21,9 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+import citylearn_tpu_torch.train as train_mod
 from citylearn_tpu_torch import CityLearnEnv, tracing
 from citylearn_tpu_torch.core.evaluate_fast import ScriptedPolicy, evaluate_scripted
-from citylearn_tpu_torch.synthetic import write_battery_pv_dataset
+from citylearn_tpu_torch.core.step import district_step
+from citylearn_tpu_torch.synthetic import write_battery_pv_dataset, write_ev_dataset
 from citylearn_tpu_torch.train import BatchedSAC, TrainConfig
 from citylearn_tpu_torch.utilities import Profiler
 
@@ -199,6 +205,43 @@ def test_counts_agree_with_the_cadence_and_the_steps(dataset):
     for s in rec.spans:
         if s.name != "env.step":
             assert by_id[s.parent].name == "env.step" and by_id[s.root].name == "env.step"
+
+
+@pytest.mark.parametrize("constraints", [False, True], ids=["plain", "constrained"])
+def test_ev_step_spans_and_charger_steps(tmp_path, constraints):
+    schema = write_ev_dataset(str(tmp_path), 4, 3, 4, 1, 100, seed=2, constraints=constraints)
+    cfg = TrainConfig(n_districts=8, hidden=(16, 16), batch_size=16, replay_capacity=8 * 16,
+                      warmup_steps=4, collect="scan")
+    tr = BatchedSAC(schema, cfg, seed=3, episode_time_steps=EPISODE, device="cpu")
+    C = tr.env_cfg.n_chargers
+    assert C == 3 and tr.env_cfg.has_charging_constraints == constraints
+    inner = ["step.charging_constraints"] if constraints else []
+
+    # an eager step on its own: the blocks' spans, outermost first
+    a = torch.rand((8,) + tuple(tr.act_low.shape)) * tr.act_mask
+    with tracing.recording() as rec:
+        district_step(tr.env_cfg, tr.params, tr.state.env_state, tr._actions_dict(a))
+    by_id = {s.id: s for s in rec.spans}
+    assert sorted(s.name for s in rec.spans) == sorted(["step.ev", "step.washing_machines"]
+                                                       + inner)
+    for s in rec.spans:
+        assert s.parent == (by_id[s.parent].id if s.name in inner else 0)
+        if s.name in inner:
+            assert by_id[s.parent].name == "step.ev"
+
+    # the per-step trainer: one of each a step, under train.step, and D x C
+    # charger steps counted a step
+    before = train_mod.charger_steps
+    with tracing.recording() as rec:
+        tr.train(6, chunk=6)
+    assert train_mod.charger_steps - before == 6 * 8 * C
+    names = [s.name for s in rec.spans]
+    by_id = {s.id: s for s in rec.spans}
+    for name in ["step.ev", "step.washing_machines"] + inner:
+        assert names.count(name) == 6, name
+    for s in rec.spans:
+        if s.name in ("step.ev", "step.washing_machines"):
+            assert by_id[s.parent].name == "train.step"
 
 
 def test_span_clock_is_the_profilers():

@@ -5,8 +5,9 @@ program's own spans (``citylearn_tpu_torch.tracing``), on one CUDA card.
     python3 trace_layers.py [--seed N] [--calls 8] [--steps 2000] [--pairs 24] [--json PATH]
 
 The cells are built as ``benchmark/`` builds them (``BENCHMARK.json``'s
-``challenge2022_phase1.sac_train``, ``challenge2022_phase1.gym_year`` and
-``challenge2023_phase1.sac_train``, from the seed) and warmed up; then,
+``challenge2022_phase1.sac_train``, ``challenge2022_phase1.gym_year``,
+``challenge2023_phase1.sac_train`` and
+``challenge2022_phase_all_plus_evs.sac_train``, from the seed) and warmed up; then,
 for each, in one process:
 
 1. spans: ``--calls`` train calls (``--steps`` env steps) with the tracer
@@ -39,6 +40,16 @@ step's CUDA graph runs neither as Python). For it and the Gym cell,
 CUDA graph) and ``step.capture`` in the warm-up and in stretch 1, and
 the share of stretch 1's district steps that replayed.
 
+The per-step EV cell (``challenge2022_phase_all_plus_evs.sac_train``)
+runs as the LSTM cell does, and adds: an eager EV step's split (twenty
+``district_step`` calls off the step's graph, each ended by a
+synchronize: the step's milliseconds, and the host milliseconds of its
+``step.ev`` and ``step.washing_machines`` spans and of the rest), the
+charger steps counted in stretch 1 (``train.charger_steps``, D x C a
+step), and the step's CUDA graph's replays alone under the device trace
+(the device kernels one replay runs and its busy time, as for the
+update's graph, which is traced too, at 17 agents).
+
 Prints one JSON object, also written to ``--json`` (default
 ``chiprun_out/trace_layers.json``).
 """
@@ -61,6 +72,7 @@ import torch
 from benchmark import harness
 from benchmark.entries import gym as gym_entry
 from benchmark.entries import sac_train as sac_entry
+from benchmark.entries import sac_train_evs as evs_entry
 from benchmark.entries import sac_train_scan as scan_entry
 from citylearn_tpu_torch import tracing
 
@@ -194,24 +206,57 @@ def update_graph_kernels(tr, job, replays: int = 32) -> dict:
         tr.train(job.chunk, chunk=job.chunk)
     torch.cuda.synchronize()
     steps = len(rec.durations("sac.target"))
+    replayed, run = replay_kernels(nets.update_graph.captured, replays)
+    twin_s, twin_n = run.kernel_seconds(lambda name: any(k in name for k in TWIN_KERNELS))
+    return {"sac_steps": steps, "sac.capture": len(rec.durations("sac.capture")),
+            "twin_passes_per_sac_step": len(rec.durations("twin_q")) / steps if steps else None,
+            "twin_launches_per_sac_step": (twin_q.launches - before) / steps if steps else None,
+            "twin_kernels_per_replay": twin_n / replays,
+            "twin_ms_per_replay": 1e3 * twin_s / replays, **replayed}
+
+
+def replay_kernels(graph, replays: int = 32):
+    """``replays`` replays of a captured CUDA graph alone under the device
+    trace: the device kernels a replay runs, its kernels' and its busy
+    milliseconds, and the kernels that took most of it; and the trace."""
     run = harness.Run()
     with harness.device_trace(run):
         for _ in range(replays):
-            nets.update_graph.captured.replay()
-    twin_s, twin_n = run.kernel_seconds(lambda name: any(k in name for k in TWIN_KERNELS))
+            graph.replay()
     by_name = {}
     for name, s, e in run.device_ops:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"sac_steps": steps, "sac.capture": len(rec.durations("sac.capture")),
-            "twin_passes_per_sac_step": len(rec.durations("twin_q")) / steps if steps else None,
-            "twin_launches_per_sac_step": (twin_q.launches - before) / steps if steps else None,
-            "replays": replays, "kernels_per_replay": len(run.device_ops) / replays,
-            "twin_kernels_per_replay": twin_n / replays,
-            "twin_ms_per_replay": 1e3 * twin_s / replays,
+    return {"replays": replays, "kernels_per_replay": len(run.device_ops) / replays,
             "kernel_ms_per_replay": 1e3 * sum(by_name.values()) / replays,
             "busy_ms_per_replay": 1e3 * run.busy_s() / replays,
-            "top_kernels_ms_per_replay": [[name[:96], 1e3 * t / replays] for name, t in top]}
+            "top_kernels_ms_per_replay": [[name[:96], 1e3 * t / replays] for name, t in top]}, run
+
+
+def eager_ev_split(tr, steps: int = 20) -> dict:
+    """``steps`` eager ``district_step`` calls of the EV district off the
+    step's graph, from the trainer's state under zero actions, each ended
+    by a synchronize: the step's milliseconds, and the host milliseconds of
+    its EV and machine blocks' spans and of the rest of the step."""
+    from citylearn_tpu_torch.core.step import district_step
+
+    a = torch.zeros((tr.n_local,) + tuple(tr.act_low.shape), device=tr.device)
+    actions = tr._actions_dict(a)
+    state = tr.state.env_state
+    times = []
+    with tracing.recording() as rec:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            district_step(tr.env_cfg, tr.params, state, actions)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * sum(times) / steps
+    ms = lambda name: 1e3 * sum(rec.durations(name)) / steps
+    ev, wm = ms("step.ev"), ms("step.washing_machines")
+    return {"steps": steps, "step_ms": step_ms, "step.ev_ms": ev,
+            "step.charging_constraints_ms": ms("step.charging_constraints"),
+            "step.washing_machines_ms": wm, "rest_ms": step_ms - ev - wm}
 
 
 def traced(fn):
@@ -286,6 +331,46 @@ def scan_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
     return out
 
 
+def ev_cell(seed: int, calls: int, pairs: int, root: str) -> dict:
+    import citylearn_tpu_torch.train as train_mod
+
+    bench = harness.load_benchmark()
+    cell = harness.find_cell(bench, "challenge2022_phase_all_plus_evs.sac_train")
+    sac_entry._no_tf32()
+    job, _, tr, _ = evs_entry.build(cell, seed, root, torch.device("cuda:0"))
+    once = lambda: tr.train(job.chunk, chunk=job.chunk)
+    with tracing.recording() as warm:
+        for _ in range(3):
+            once()
+    torch.cuda.synchronize()
+    before = train_mod.charger_steps
+    t0 = time.perf_counter()
+    with tracing.recording() as rec:
+        for _ in range(calls):
+            once()
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    table = span_table(rec)
+    total = lambda name: sum(rec.durations(name)) * 1e3
+    steps = table.get("train.step", {}).get("n", 0)
+    out = {"calls": calls, "calls_per_s": calls / elapsed,
+           "dsteps_per_s": calls * job.chunk * job.n_districts / elapsed, "spans": table,
+           "graph": graph_share(table),
+           "step_graph": step_graph_share(table, "train.step", span_table(warm)),
+           "charger_steps": train_mod.charger_steps - before,
+           "charger_steps_per_step": (train_mod.charger_steps - before) / steps if steps else None,
+           "step_less_update_ms": (total("train.step") - total("train.update")) / steps
+           if steps else None}
+    out["eager_step"] = eager_ev_split(tr)
+    out["step_replay"] = replay_kernels(tr._step_graph.graph.captured)[0]
+    out["trace"] = traced(once)
+    out["on_off"] = on_off(pairs, once)
+    out["update_graph"] = update_graph_kernels(tr, job)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
 def gym_cell(seed: int, steps: int, pairs: int, root: str) -> dict:
     from citylearn_tpu_torch.envs.environment import CityLearnEnv
 
@@ -336,7 +421,9 @@ def main(argv=None) -> int:
                "sac_train": sac_cell(args.seed, args.calls, args.pairs, root),
                "gym_year": gym_cell(args.seed, args.steps, args.pairs, root),
                "lstm_sac_train": scan_cell(args.seed, max(1, args.calls // 4),
-                                           max(2, args.pairs // 4), root)}
+                                           max(2, args.pairs // 4), root),
+               "ev_sac_train": ev_cell(args.seed, max(1, args.calls // 4),
+                                       max(2, args.pairs // 4), root)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
